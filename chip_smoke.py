@@ -8,8 +8,9 @@ card and nvcc:
 Phases, each printing its own line; any failure exits non-zero:
 
 1. CUDA is present; the card's name and power limit (nvidia-smi).
-2. The Hamming tile sweep kernel (humid_tpu_torch/csrc/hamming_sweep.cu)
-   is built from source with nvcc (seconds; ptxas report printed).
+2. Both kernels (humid_tpu_torch/csrc/hamming_sweep.cu, ring_sweep.cu)
+   are built from source with nvcc, one process each, started together
+   (seconds; ptxas reports printed).
 3. Kernel vs its plain PyTorch version on the card, on sweep inputs built
    exactly as the neighbour engines build them: the bucketed table of a
    1M-read sample (~2e5 uniques, the end-to-end run's shape) and of a
@@ -26,8 +27,30 @@ Phases, each printing its own line; any failure exits non-zero:
    identical files, dedup lines == 4 x clusters and annotated lines ==
    4 x total.  If g++ and zlib are present, baseline/humid_ref is built
    and its outputs must be byte-identical.
-5. One JSON line describing the kernel, then the result line
-   ``{"ok": true, "device": {...}}``.
+5. Ring kernel vs its plain version, one step, on the card (tolerance
+   0): b = 16,384, w = 2, m = 1 with ``upper_only`` true and false and
+   ``u`` cutting the column block in the middle; w = 3, m = 2 both ways;
+   and w = 3 with max_dist >= 16 w, where every valid pair matches.  Two
+   launches give identical sorted arrays.
+6. The tile sweep with a run-id mask vs its plain version, on one shard's
+   input of the bucketed mesh search built from the 1M-read table.
+7. The whole ring on a 65,536-unique table (w = 2, m = 1) for 1, 2, 3, 4
+   and 8 shards on the one card, twice each: every result must equal the
+   plain ring at 3 shards (the schedule driven through the plain step)
+   and the dense tile sweep.  1 and 4 shards are timed.
+8. The ring at the main path's size: the 1M-read table on 4 shards must
+   equal the bucketed tile sweep; kernel time (CUDA events around the
+   schedule's launches), launches and pair evaluations/s are printed.
+9. End to end through the mesh: the phase-4 file with
+   ``neighbor_opts={"strategy": "ring"}`` on 4 shards (ring launch count
+   reset before, >= 1 required after), with ``"sharded_bucketed"`` (tile
+   sweep launches >= 1), and through ``python -m humid_tpu_torch`` with
+   HUMID_TPU_TORCH_STRATEGY=ring HUMID_TPU_TORCH_SHARDS=4; all outputs
+   byte-identical to phase 4's and to baseline/humid_ref.
+10. One JSON line describing both kernels (launches on their end-to-end
+    runs, time, plain time, the card's bound for the same work), the
+    card's nvidia-smi line, then the result line
+    ``{"ok": true, "device": {...}}``.
 
 Scratch files go to build/chip_smoke/ inside the checkout.
 """
@@ -132,6 +155,29 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def sweep_evaluations(n_rows, tile_pairs, tile, part_stride,
+                      part_valid) -> int:
+    """Word pairs a tile-pair list has to evaluate: valid rows x valid
+    columns per tile pair, the strict upper triangle on a diagonal one."""
+    g = np.arange(n_rows)
+    valid = np.bincount(g[g % part_stride < part_valid] // tile,
+                        minlength=-(-n_rows // tile)).astype(np.int64)
+    vi, vj = valid[tile_pairs[:, 0]], valid[tile_pairs[:, 1]]
+    diag = tile_pairs[:, 0] == tile_pairs[:, 1]
+    return int(np.where(diag, vi * (vi - 1) // 2, vi * vj).sum())
+
+
+def bound_ms(evaluations: int, w: int, n_bytes: int, card: dict) -> dict:
+    """Least time the card could take: the larger of the bytes moved over
+    the memory rate (3.35e12 B/s, the H100 data sheet) and the POPC
+    operations (w per evaluated pair) over SMs x 16 POPC/clock x the
+    card's maximum SM clock."""
+    ops_ms = evaluations * w / (card["sms"] * 16 * card["sm_hz"]) * 1e3
+    bytes_ms = n_bytes / 3.35e12 * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def kernel_vs_plain(name, rows, tile_pairs, *, tile, u_pad, u, max_dist,
                     device, reps: int = 5, plain_reps: int = 1) -> dict:
     """Run the sweep's kernel wrapper and its plain version on the same
@@ -162,7 +208,10 @@ def kernel_vs_plain(name, rows, tile_pairs, *, tile, u_pad, u, max_dist,
                          plain_reps)
     out = {"rows": int(lanes.shape[0]), "w": int(lanes.shape[1]),
            "tile_pairs": int(len(tp)), "pairs": int(len(ka)),
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "evaluations": sweep_evaluations(len(rows), tile_pairs, tile,
+                                            u_pad, u),
+           "bytes": lanes.numel() * 4 + tp.numel() * 4 + 16 * len(ka)}
     say(f"phase 3 {name}: kernel == plain (tolerance 0, integer pairs); "
         f"{json.dumps(out)}")
     return out
@@ -171,22 +220,23 @@ def kernel_vs_plain(name, rows, tile_pairs, *, tile, u_pad, u, max_dist,
 def sweep_phase(device) -> dict:
     from humid_tpu_torch.ops.neighbors import bucketed_inputs, dense_inputs
 
-    results = {}
+    results, tables = {}, {}
     for name, n_reads in (("bucketed_1M_reads", 1_000_000),
                           ("bucketed_10M_reads", 10_000_000)):
-        uniq = sample_uniques(n_reads, 24, 1, seed=n_reads % 997)
+        uniq = tables[name] = sample_uniques(n_reads, 24, 1,
+                                             seed=n_reads % 997)
         rows, tps, b, u_pad, _ = bucketed_inputs(uniq, 1, 24, 2048)
         say(f"phase 3 {name}: {len(uniq)} uniques, {len(tps)} tile pairs")
         results[name] = kernel_vs_plain(
             name, rows, tps, tile=b, u_pad=u_pad, u=len(uniq), max_dist=1,
             device=device)
-    uniq = sample_uniques(72_000, 33, 2, seed=33)
+    uniq = tables["dense_L33_m2"] = sample_uniques(72_000, 33, 2, seed=33)
     rows, tps, b, u_pad = dense_inputs(uniq, 2048)
     say(f"phase 3 dense_L33_m2: {len(uniq)} uniques, u_pad {u_pad}")
     results["dense_L33_m2"] = kernel_vs_plain(
         "dense_L33_m2", rows, tps, tile=b, u_pad=u_pad, u=len(uniq),
         max_dist=2, device=device, reps=20, plain_reps=3)
-    return results
+    return results, tables
 
 
 def _lines(path: str) -> int:
@@ -275,7 +325,277 @@ def end_to_end_phase(n_reads: int, device: str = "cuda") -> dict:
         ref_check = f"byte-identical to baseline/humid_ref ({ref_seconds:.3f} s)"
     say(f"phase 4 reference check: {ref_check}")
     return {"seconds": seconds, "cli_seconds": cli_seconds,
-            "launches": launches, "stats": st}
+            "launches": launches, "stats": st, "fastq": fq, "flags": flags,
+            "outs": [out_run] + ([out_ref] if gxx and os.path.exists(
+                "/usr/include/zlib.h") else [])}
+
+
+def _equal_pairs(name, got, want) -> None:
+    """``got`` and ``want`` are (a, b) of numpy arrays or tensors."""
+    host = lambda x: x.cpu().numpy() if hasattr(x, "cpu") else x
+    for g, w_ in zip(got, want):
+        if not np.array_equal(host(g), host(w_)):
+            raise SmokeFailure(f"{name}: pair arrays differ "
+                               f"({len(g)} vs {len(w_)} pairs)")
+
+
+def _lanes(packed, device):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(packed, np.uint32).view(
+        np.int32)).to(device)
+
+
+def ring_step_phase(device, table_w2, table_w3) -> None:
+    """Phase 5: the ring kernel against its plain version, one step.  The
+    blocks are rows [0, b) and [b, 2b) of an ascending unique table, and
+    u = b + b/2 cuts the second block in the middle: on an ``upper_only``
+    step that block is rows and columns, else it is the columns."""
+    from humid_tpu_torch.parallel import cuda_ring as R
+
+    b3 = len(table_w3) // 2
+    cases = [("w2_m1", table_w2, 16384, 1, True),
+             ("w2_m1", table_w2, 16384, 1, False),
+             ("w3_m2", table_w3, b3, 2, True),
+             ("w3_m2", table_w3, b3, 2, False),
+             ("w3_all_pairs", table_w3, 2048, 48, False)]
+    for name, table, b, m, upper_only in cases:
+        cols = _lanes(table[b:2 * b], device)
+        rows = cols if upper_only else _lanes(table[:b], device)
+        kw = dict(row_base=b if upper_only else 0, col_base=b,
+                  u=b + b // 2, max_dist=m, upper_only=upper_only)
+        ka, kb = R.ring_block_pairs(rows, cols, **kw)
+        pa, pb = R.ring_block_pairs_plain(rows, cols, **kw)
+        _equal_pairs(f"phase 5 {name}", (ka, kb), (pa, pb))
+        _equal_pairs(f"phase 5 {name} (second launch)",
+                     R.ring_block_pairs(rows, cols, **kw), (ka, kb))
+        if not len(ka):
+            raise SmokeFailure(f"phase 5 {name}: no pair found")
+        if int(kb.max()) >= kw["u"]:
+            raise SmokeFailure(f"phase 5 {name}: a padding row matched")
+        if m >= 48 and len(ka) != b * (b // 2):
+            raise SmokeFailure(f"phase 5 {name}: {len(ka)} pairs, expected "
+                               f"every valid one ({b * (b // 2)})")
+        ms = time_cuda(lambda: R.ring_block_pairs(rows, cols, **kw), 5)
+        plain = time_cuda(
+            lambda: R.ring_block_pairs_plain(rows, cols, **kw), 1)
+        say(f"phase 5 {name} upper_only={upper_only}: kernel == plain "
+            f"(tolerance 0); b {b}, pairs {len(ka)}, kernel {ms:.3f} ms, "
+            f"plain {plain:.3f} ms")
+
+
+def ids_phase(device, uniq) -> None:
+    """Phase 6: the tile sweep with a run-id mask against its plain
+    version, on shard 0's input of the bucketed mesh search."""
+    import torch
+
+    from humid_tpu_torch.ops import cuda_hamming as K
+    from humid_tpu_torch.ops.neighbors import sweep_tensors
+    from humid_tpu_torch.parallel.neighbors import bucketed_shard_inputs
+
+    prep = bucketed_shard_inputs(uniq, 1, 24, 4)
+    lanes, tp = sweep_tensors(prep["rows"][0], prep["tile_pairs"][0], device)
+    ids = torch.from_numpy(prep["ids"][0]).to(device)
+    kw = dict(tile=prep["tile"], part_stride=prep["r_pad"],
+              part_valid=prep["urows"][0], max_dist=1, ids=ids)
+    got = K.hamming_tile_pairs(lanes, tp, **kw)
+    _equal_pairs("phase 6", got, K.hamming_tile_pairs_plain(lanes, tp, **kw))
+    _equal_pairs("phase 6 (second launch)",
+                 K.hamming_tile_pairs(lanes, tp, **kw), got)
+    free = K.hamming_tile_pairs(lanes, tp, **{**kw, "ids": None})
+    if not 0 < len(got[0]) <= len(free[0]):
+        raise SmokeFailure(f"phase 6: {len(got[0])} masked pairs against "
+                           f"{len(free[0])} unmasked")
+    ms = time_cuda(lambda: K.hamming_tile_pairs(lanes, tp, **kw), 5)
+    free_ms = time_cuda(
+        lambda: K.hamming_tile_pairs(lanes, tp, **{**kw, "ids": None}), 5)
+    say(f"phase 6: tile sweep with ids == plain (tolerance 0); shard 0 of "
+        f"4: {prep['urows'][0]} rows, tile {prep['tile']}, {len(tp)} tile "
+        f"pairs, {len(got[0])} pairs ({len(free[0])} without the mask), "
+        f"{ms:.3f} ms with ids, {free_ms:.3f} ms without")
+
+
+def plain_ring(uniq, max_dist, d, device):
+    """The ring schedule driven through the plain step, on the card."""
+    import torch
+
+    from humid_tpu_torch.parallel import cuda_ring as R
+    from humid_tpu_torch.parallel.mesh import pad_to_shards
+
+    u = len(uniq)
+    b = -(-u // d)
+    lanes = _lanes(pad_to_shards(uniq, d, multiple=1), device)
+    outs = []
+    for me, s, q, upper_only, emits in R.ring_schedule(d):
+        if emits:
+            outs.append(R.ring_block_pairs_plain(
+                lanes[me * b:(me + 1) * b], lanes[q * b:(q + 1) * b],
+                row_base=me * b, col_base=q * b, u=u, max_dist=max_dist,
+                upper_only=upper_only))
+    key = torch.sort(torch.cat([a * u + bb for a, bb in outs])).values
+    return (key // u).cpu().numpy(), (key % u).cpu().numpy()
+
+
+def _wall_ms(fn, reps: int = 3) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def ring_schedule_phase(device, table) -> None:
+    """Phase 7: the whole ring for several shard counts on one card."""
+    from humid_tpu_torch import parallel as P
+    from humid_tpu_torch.ops.neighbors import find_neighbor_pairs
+
+    dense = find_neighbor_pairs(table, 1, word_length=24, strategy="dense",
+                                device=device)
+    _equal_pairs("phase 7 plain ring (3 shards) vs dense sweep",
+                 plain_ring(table, 1, 3, device), dense)
+    if len(table) != 65536 or not len(dense[0]):
+        raise SmokeFailure(f"phase 7: {len(table)} uniques, "
+                           f"{len(dense[0])} pairs")
+    for d in (1, 2, 3, 4, 8):
+        mesh = P.data_mesh(d, device)
+        for run in (1, 2):
+            _equal_pairs(f"phase 7 ring, {d} shards, run {run}",
+                         P.sharded_neighbor_pairs_ring(
+                             table, 1, word_length=24, mesh=mesh), dense)
+    times = {d: _wall_ms(lambda: P.sharded_neighbor_pairs_ring(
+        table, 1, word_length=24, mesh=P.data_mesh(d, device)))
+        for d in (1, 4)}
+    say(f"phase 7: ring on {len(table)} uniques == plain ring == dense "
+        f"sweep for 1, 2, 3, 4, 8 shards, twice each ({len(dense[0])} "
+        f"pairs); whole-ring wall 1 shard {times[1]:.3f} ms, 4 shards "
+        f"{times[4]:.3f} ms")
+
+
+def ring_main_shape_phase(device, uniq, card) -> dict:
+    """Phase 8: the ring at the main path's size, 4 shards; times of the
+    kernel alone (the schedule's launches between two CUDA events), of
+    the whole ring call, and of one step's wrapper and plain version."""
+    import torch
+
+    from humid_tpu_torch import parallel as P
+    from humid_tpu_torch.ops.neighbors import find_neighbor_pairs
+    from humid_tpu_torch.parallel import cuda_ring as R
+    from humid_tpu_torch.parallel.mesh import pad_to_shards
+
+    d, u, w = 4, len(uniq), uniq.shape[1]
+    mesh = P.data_mesh(d, device)
+    want = find_neighbor_pairs(uniq, 1, word_length=24, strategy="bucketed",
+                               device=device)
+    R.LAUNCHES = 0
+    got = P.sharded_neighbor_pairs_ring(uniq, 1, word_length=24, mesh=mesh)
+    launches = R.LAUNCHES
+    _equal_pairs("phase 8 ring (4 shards) vs bucketed sweep", got, want)
+    ring_wall = _wall_ms(lambda: P.sharded_neighbor_pairs_ring(
+        uniq, 1, word_length=24, mesh=mesh))
+
+    b = -(-u // d)
+    lanes = _lanes(pad_to_shards(uniq, d, multiple=1), device)
+    blocks = [lanes[i * b:(i + 1) * b] for i in range(d)]
+    steps = [(me, q, up) for me, s, q, up, emits in R.ring_schedule(d)
+             if emits]
+    valid = [max(0, min(u - i * b, b)) for i in range(d)]
+    evaluations = sum(valid[me] * (valid[me] - 1) // 2 if up
+                      else valid[me] * valid[q] for me, q, up in steps)
+    buf = R._PairBuffer.new(R.CAP_START, device)
+
+    def all_steps():
+        buf.counter.zero_()
+        for me, q, up in steps:
+            R._step(blocks[me], blocks[q], buf, row_base=me * b,
+                    col_base=q * b, u=u, max_dist=1, upper_only=up)
+
+    kernel_ms = time_cuda(all_steps, 10)
+    if int(buf.counter.item()) != len(want[0]):
+        raise SmokeFailure(f"phase 8: the timed launches counted "
+                           f"{int(buf.counter.item())} pairs, expected "
+                           f"{len(want[0])}")
+    # One step at this shape: shard 0 against block 1 (not upper_only).
+    kw = dict(row_base=0, col_base=b, u=u, max_dist=1, upper_only=False)
+    step = R.ring_block_pairs(blocks[0], blocks[1], **kw)
+    _equal_pairs("phase 8 one step vs plain", step,
+                 R.ring_block_pairs_plain(blocks[0], blocks[1], **kw))
+    ms = time_cuda(lambda: R.ring_block_pairs(blocks[0], blocks[1], **kw), 5)
+    plain_ms = time_cuda(
+        lambda: R.ring_block_pairs_plain(blocks[0], blocks[1], **kw), 1)
+    step_bound = bound_ms(valid[0] * valid[1], w,
+                          2 * b * w * 4 + 16 * len(step[0]), card)
+    ring_bound = bound_ms(evaluations, w,
+                          len(steps) * 2 * b * w * 4 + 16 * len(want[0]),
+                          card)
+    out = {"uniques": u, "shards": d, "block_rows": b,
+           "launches_per_ring": launches, "evaluations": evaluations,
+           "pairs": len(want[0]), "kernel_ms_all_steps": kernel_ms,
+           "evaluations_per_s": evaluations / (kernel_ms * 1e-3),
+           "ring_bound_ms": ring_bound["bound_ms"], "ring_wall_ms":
+           ring_wall, "slot_bytes": b * w * 4, "step_ms": ms,
+           "step_plain_ms": plain_ms, **step_bound}
+    say(f"phase 8: ring at the main path's size == bucketed sweep; "
+        f"{json.dumps(out)}")
+    return out
+
+
+def mesh_end_to_end_phase(e2e: dict, device: str = "cuda") -> dict:
+    """Phase 9: the phase-4 file through the mesh engines."""
+    import humid_tpu_torch
+    from humid_tpu_torch.ops import cuda_hamming
+    from humid_tpu_torch.parallel import cuda_ring, data_mesh
+
+    fq = e2e["fastq"]
+    counts = {}
+    for strategy, mod in (("ring", cuda_ring),
+                          ("sharded_bucketed", cuda_hamming)):
+        out = os.path.join(WORK, f"out_{strategy}")
+        cuda_ring.LAUNCHES = cuda_hamming.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = humid_tpu_torch.run(
+            [fq], word_length=24, distance=1, dir_name=out,
+            log_name=os.path.join(WORK, f"{strategy}.log"), run_stats=True,
+            write_annotated=True, device=device,
+            neighbor_opts={"strategy": strategy,
+                           "mesh": data_mesh(4, device)})
+        seconds = time.perf_counter() - t0
+        counts[strategy] = mod.LAUNCHES
+        engine = res.extra["engine"]
+        say(f"phase 9 run() strategy={strategy}: {seconds:.3f} s, ring "
+            f"launches {cuda_ring.LAUNCHES}, tile sweep launches "
+            f"{cuda_hamming.LAUNCHES}, engine {json.dumps(engine)}, "
+            f"neighbours "
+            f"{res.extra['timings']['Calculating neighbours using Hamming distance']:.3f} s")
+        if counts[strategy] < 1:
+            raise SmokeFailure(f"strategy {strategy} launched no kernel of "
+                               f"{mod.__name__}")
+        if engine != {"strategy": strategy, "shards": 4,
+                      "ring_fallbacks": 0}:
+            raise SmokeFailure(f"unexpected engine record {engine}")
+        for ref in e2e["outs"]:
+            _same_files(ref, out)
+    out_cli = os.path.join(WORK, "out_cli_ring")
+    env = dict(os.environ, HUMID_TPU_TORCH_DEVICE=device,
+               HUMID_TPU_TORCH_STRATEGY="ring", HUMID_TPU_TORCH_SHARDS="4")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "humid_tpu_torch", *e2e["flags"], "-d",
+         out_cli, "-l", os.path.join(WORK, "cli_ring.log"), fq],
+        cwd=REPO, env=env, capture_output=True, text=True)
+    if proc.returncode:
+        raise SmokeFailure(f"python -m humid_tpu_torch (ring) failed:\n"
+                           f"{proc.stderr}")
+    for ref in e2e["outs"]:
+        _same_files(ref, out_cli)
+    say(f"phase 9 python -m humid_tpu_torch with HUMID_TPU_TORCH_STRATEGY="
+        f"ring HUMID_TPU_TORCH_SHARDS=4: {time.perf_counter() - t0:.3f} s; "
+        f"all mesh outputs byte-identical to phase 4's"
+        + (" and to baseline/humid_ref" if len(e2e["outs"]) > 1 else ""))
+    return counts
 
 
 def main() -> int:
@@ -295,28 +615,57 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from humid_tpu_torch import _build
 
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    card_info = {
+        "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+        "sm_hz": float(clock.stdout.strip().splitlines()[0]) * 1e6}
+    say(f"phase 1: {card}; {card_info['sms']} SMs, maximum SM clock "
+        f"{card_info['sm_hz'] / 1e6:.0f} MHz")
+
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    lib = _build.library_path("hamming_sweep")
-    lib.unlink(missing_ok=True)  # build from this checkout's source
+    kernels = ("hamming_sweep", "ring_sweep")
+    for name in kernels:  # build from this checkout's sources
+        _build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
-    _build.build("hamming_sweep")
-    say(f"phase 2: built {os.path.relpath(lib, REPO)} in "
+    libs = _build.build_all(kernels)
+    say(f"phase 2: built {[os.path.relpath(p, REPO) for p in libs]} in "
         f"{time.perf_counter() - t0:.3f} s")
-    say(lib.with_suffix(".log").read_text().strip())
+    for lib in libs:
+        say(lib.with_suffix(".log").read_text().strip())
 
     device = torch.device("cuda")
-    sweeps = sweep_phase(device)
+    sweeps, tables = sweep_phase(device)
     e2e = end_to_end_phase(1_000_000)
+    uniq_1m = tables["bucketed_1M_reads"]
+    ring_step_phase(device, uniq_1m, tables["dense_L33_m2"])
+    ids_phase(device, uniq_1m)
+    ring_schedule_phase(device, sample_uniques(400_000, 24, 1,
+                                               seed=7)[:65536])
+    ring = ring_main_shape_phase(device, uniq_1m, card_info)
+    mesh_launches = mesh_end_to_end_phase(e2e)
 
     main_shape = sweeps["bucketed_1M_reads"]
+    no_library = None  # no single PyTorch call computes either sweep
     say(json.dumps({"kernels": [{
         "name": "hamming_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/hamming_sweep.cu",
         "replaces": "humid_tpu/ops/pallas_hamming.py:60",
         "launches": e2e["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in sweeps.values()),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"]}]}))
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        **bound_ms(main_shape["evaluations"], main_shape["w"],
+                   main_shape["bytes"], card_info),
+        "library_ms": no_library}, {
+        "name": "ring_sweep", "route": "cuda",
+        "source": "humid_tpu_torch/csrc/ring_sweep.cu",
+        "replaces": "humid_tpu/parallel/pallas_ring.py:75",
+        "launches": mesh_launches["ring"], "max_abs_err": 0,
+        "ms": ring["step_ms"], "plain_ms": ring["step_plain_ms"],
+        "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
+        "library_ms": no_library}]}))
     say(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ use into ``build/humid_tpu_torch/lib<name>.so`` beside the package (the
 
 and loaded with ``ctypes``.  The sources have a plain C interface (no
 PyTorch headers), so a build takes seconds.  A library older than its
-source is rebuilt.  The compiler's output (``-Xptxas -v``: registers,
+source or than any shared header (``csrc/*.cuh``) is rebuilt.  The
+compiler's output (``-Xptxas -v``: registers,
 shared memory, spills per kernel) is kept in ``lib<name>.log``.
 """
 
@@ -20,6 +21,7 @@ import functools
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -48,7 +50,8 @@ def build(name: str) -> Path:
     output when nvcc fails."""
     src = CSRC / f"{name}.cu"
     out = library_path(name)
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    if out.exists() and out.stat().st_mtime >= newest:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Build under a private name and rename: concurrent first uses never
@@ -62,6 +65,13 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def build_all(names) -> list[Path]:
+    """Build several kernels at once, one nvcc process each."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        return list(ex.map(build, names))
 
 
 @functools.cache

@@ -42,3 +42,17 @@ def avail_bytes(default: int = 1 << 33) -> int:
         return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
     except (ValueError, OSError):
         return default
+
+
+def concat_aranges(lens):
+    """[0..lens[0]), [0..lens[1]), ... concatenated, vectorized: the
+    within-segment iota of a ragged gather (the mesh search's run
+    expander)."""
+    import numpy as np
+
+    lens = np.asarray(lens, np.int64)
+    total = int(lens.sum())
+    if not total:
+        return np.zeros(0, np.int64)
+    offs = np.repeat(np.concatenate([[0], np.cumsum(lens)[:-1]]), lens)
+    return np.arange(total, dtype=np.int64) - offs

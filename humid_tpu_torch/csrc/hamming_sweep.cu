@@ -10,7 +10,8 @@
 //     popcount over lanes of ((r ^ c) | ((r ^ c) >> 1)) & 0x55555555
 //       <= max_dist,
 //   both rows valid (index < n_rows and index % part_stride < part_valid),
-//   and c > r when ti == tj (upper triangle of a diagonal tile pair),
+//   c > r when ti == tj (upper triangle of a diagonal tile pair),
+//   and, when a run-id vector is given, ids[r] == ids[c],
 //   is appended as (r, c) to a global int64 pair buffer.
 //
 // What bounds it on the card: integer ALU work.  Each pair and lane costs
@@ -25,8 +26,11 @@
 // row's lanes in registers; a block of ROWS threads stages COLS column
 // words (and their validity flags) in shared memory, and every thread
 // reads the same column word at once, a broadcast without bank
-// conflicts.  Validity and the upper triangle are explicit masks, so the
-// kernel has no limit on max_dist (the TPU kernel zeroed the one-hot
+// conflicts.  The run-id mask (the pigeonhole engines compare only words
+// of one equal-key run) stages the column ids beside the validity flags;
+// it is a template parameter, so a sweep without ids pays nothing for
+// it.  Validity and the upper triangle are explicit masks, so the kernel
+// has no limit on max_dist (the TPU kernel zeroed the one-hot
 // features of padding words, which only works while max_dist < 16 * w),
 // and on a diagonal tile pair a block skips the column chunks that lie
 // wholly at or below its first row.  Each match takes one 64-bit
@@ -38,8 +42,7 @@
 // The kernel allocates nothing and launches on the caller's stream.  The
 // C entry point returns cudaGetLastError() after the launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hamming_common.cuh"
 
 namespace {
 
@@ -52,9 +55,10 @@ __device__ __forceinline__ bool word_valid(long long g, long long n_rows,
   return g < n_rows && (g % part_stride) < part_valid;
 }
 
-template <int W>
+template <int W, bool IDS>
 __global__ void __launch_bounds__(ROWS)
 hamming_sweep_kernel(const uint32_t* __restrict__ lanes, long long n_rows,
+                     const int* __restrict__ ids,
                      const int* __restrict__ tile_pairs, int tile,
                      long long part_stride, long long part_valid,
                      int max_dist, long long* __restrict__ out_a,
@@ -62,6 +66,7 @@ hamming_sweep_kernel(const uint32_t* __restrict__ lanes, long long n_rows,
                      unsigned long long* __restrict__ counter) {
   __shared__ uint32_t s_cols[COLS * W];
   __shared__ unsigned char s_ok[COLS];
+  __shared__ int s_ids[IDS ? COLS : 1];
 
   const int* p = tile_pairs + 3LL * blockIdx.y;
   const int ti = p[0];
@@ -77,6 +82,8 @@ hamming_sweep_kernel(const uint32_t* __restrict__ lanes, long long n_rows,
   uint32_t row[W];
 #pragma unroll
   for (int l = 0; l < W; ++l) row[l] = row_ok ? lanes[gr * W + l] : 0u;
+  int row_id = 0;
+  if constexpr (IDS) row_id = row_ok ? ids[gr] : 0;
 
   const long long col_base = (long long)tj * tile;
   // On a diagonal tile pair no column at or below row0 can match.
@@ -93,38 +100,38 @@ hamming_sweep_kernel(const uint32_t* __restrict__ lanes, long long n_rows,
       s_ok[c] = c0 + c < tile &&
                 word_valid(col_base + c0 + c, n_rows, part_stride,
                            part_valid);
+      if constexpr (IDS) s_ids[c] = s_ok[c] ? ids[col_base + c0 + c] : 0;
     }
     __syncthreads();
     if (!row_ok) continue;
     const int c_end = min(COLS, tile - c0);
     for (int c = 0; c < c_end; ++c) {
-      int d = 0;
-#pragma unroll
-      for (int l = 0; l < W; ++l) {
-        const uint32_t z = row[l] ^ s_cols[c * W + l];
-        d += __popc((z | (z >> 1)) & 0x55555555u);
-      }
-      if (d <= max_dist && s_ok[c] && (!diag || c0 + c > r_local)) {
-        const unsigned long long slot = atomicAdd(counter, 1ULL);
-        if (slot < (unsigned long long)cap) {
-          out_a[slot] = gr;
-          out_b[slot] = col_base + c0 + c;
-        }
+      const int d = humid::word_distance<W>(row, s_cols + c * W);
+      if (d <= max_dist && s_ok[c] && (!diag || c0 + c > r_local) &&
+          (!IDS || s_ids[c] == row_id)) {
+        humid::append_pair(counter, cap, out_a, out_b, gr,
+                           col_base + c0 + c);
       }
     }
   }
 }
 
 template <int W>
-cudaError_t launch(const uint32_t* lanes, long long n_rows,
+cudaError_t launch(const uint32_t* lanes, long long n_rows, const int* ids,
                    const int* tile_pairs, long long nb, int tile,
                    long long part_stride, long long part_valid, int max_dist,
                    long long* out_a, long long* out_b, long long cap,
                    unsigned long long* counter, cudaStream_t stream) {
   const dim3 grid((tile + ROWS - 1) / ROWS, (unsigned)nb);
-  hamming_sweep_kernel<W><<<grid, ROWS, 0, stream>>>(
-      lanes, n_rows, tile_pairs, tile, part_stride, part_valid, max_dist,
-      out_a, out_b, cap, counter);
+  if (ids != nullptr) {
+    hamming_sweep_kernel<W, true><<<grid, ROWS, 0, stream>>>(
+        lanes, n_rows, ids, tile_pairs, tile, part_stride, part_valid,
+        max_dist, out_a, out_b, cap, counter);
+  } else {
+    hamming_sweep_kernel<W, false><<<grid, ROWS, 0, stream>>>(
+        lanes, n_rows, ids, tile_pairs, tile, part_stride, part_valid,
+        max_dist, out_a, out_b, cap, counter);
+  }
   return cudaGetLastError();
 }
 
@@ -132,9 +139,11 @@ cudaError_t launch(const uint32_t* lanes, long long n_rows,
 
 // Appends every matching (row, col) of the nb tile pairs to out_a/out_b
 // (the first `cap` of them) and adds the number of matches to *counter.
-// lanes: [n_rows, w] uint32; tile_pairs: [nb, 3] int32 (ti, tj, on).
+// lanes: [n_rows, w] uint32; ids: [n_rows] int32 run ids or NULL (no
+// mask); tile_pairs: [nb, 3] int32 (ti, tj, on).
 extern "C" int humid_hamming_sweep(const void* lanes, long long n_rows,
-                                   int w, const void* tile_pairs,
+                                   int w, const void* ids,
+                                   const void* tile_pairs,
                                    long long nb, int tile,
                                    long long part_stride,
                                    long long part_valid, int max_dist,
@@ -144,6 +153,7 @@ extern "C" int humid_hamming_sweep(const void* lanes, long long n_rows,
   if (nb > 65535 || tile <= 0 || part_stride <= 0)
     return (int)cudaErrorInvalidValue;
   const uint32_t* l = static_cast<const uint32_t*>(lanes);
+  const int* id = static_cast<const int*>(ids);
   const int* tp = static_cast<const int*>(tile_pairs);
   long long* a = static_cast<long long*>(out_a);
   long long* b = static_cast<long long*>(out_b);
@@ -152,24 +162,9 @@ extern "C" int humid_hamming_sweep(const void* lanes, long long n_rows,
   switch (w) {
 #define HUMID_SWEEP_CASE(W_)                                                \
   case W_:                                                                  \
-    return (int)launch<W_>(l, n_rows, tp, nb, tile, part_stride,            \
+    return (int)launch<W_>(l, n_rows, id, tp, nb, tile, part_stride,        \
                            part_valid, max_dist, a, b, cap, cnt, s);
-    HUMID_SWEEP_CASE(1)
-    HUMID_SWEEP_CASE(2)
-    HUMID_SWEEP_CASE(3)
-    HUMID_SWEEP_CASE(4)
-    HUMID_SWEEP_CASE(5)
-    HUMID_SWEEP_CASE(6)
-    HUMID_SWEEP_CASE(7)
-    HUMID_SWEEP_CASE(8)
-    HUMID_SWEEP_CASE(9)
-    HUMID_SWEEP_CASE(10)
-    HUMID_SWEEP_CASE(11)
-    HUMID_SWEEP_CASE(12)
-    HUMID_SWEEP_CASE(13)
-    HUMID_SWEEP_CASE(14)
-    HUMID_SWEEP_CASE(15)
-    HUMID_SWEEP_CASE(16)
+    HUMID_FOR_EACH_W(HUMID_SWEEP_CASE)
 #undef HUMID_SWEEP_CASE
     default:
       return (int)cudaErrorInvalidValue;

@@ -16,6 +16,10 @@ Contract of :func:`hamming_tile_pairs` and :func:`hamming_tile_pairs_plain`:
   device, i-major, tj >= ti.  Tile ti covers rows [ti*tile, (ti+1)*tile).
   Tile pairs with on == 0 emit nothing.
 * A row index g is valid when g < N and g % part_stride < part_valid.
+* ``ids`` — optional [N] int32 run ids on the same device: with it a pair
+  is emitted only when ids[a] == ids[b] (the run-id mask of the
+  pigeonhole engines, ``row_ids``/``col_ids`` of the reference's tile
+  scan).  ``None`` means no mask.
 * Returns every (a, b) with a in tile ti, b in tile tj, both valid, at
   most ``max_dist`` differing bases, and b > a on diagonal tile pairs, as
   two int64 tensors on the input's device, sorted by (a, b).  Then a < b.
@@ -51,7 +55,8 @@ MAX_LANES = 16
 
 
 def _check(lanes: torch.Tensor, tile_pairs: torch.Tensor, tile: int,
-           part_stride: int, part_valid: int, max_dist: int) -> None:
+           part_stride: int, part_valid: int, max_dist: int,
+           ids: torch.Tensor | None = None) -> None:
     if lanes.dtype != torch.int32 or lanes.dim() != 2:
         raise ValueError(f"lanes must be a 2-D int32 tensor, got "
                          f"{lanes.dtype} {tuple(lanes.shape)}")
@@ -68,6 +73,12 @@ def _check(lanes: torch.Tensor, tile_pairs: torch.Tensor, tile: int,
                          f"{lanes.device}")
     if lanes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {lanes.device}")
+    if ids is not None and (
+            ids.dtype != torch.int32 or ids.shape != lanes.shape[:1]
+            or ids.device != lanes.device or not ids.is_contiguous()):
+        raise ValueError(f"ids must be a contiguous [{lanes.shape[0]}] int32 "
+                         f"tensor on {lanes.device}, got {ids.dtype} "
+                         f"{tuple(ids.shape)} on {ids.device}")
     if tile <= 0 or part_stride <= 0 or part_valid < 0 or max_dist < 0:
         raise ValueError(f"bad sweep parameters tile={tile} "
                          f"part_stride={part_stride} "
@@ -88,11 +99,11 @@ def _sorted_pairs(a: torch.Tensor, b: torch.Tensor, n_rows: int):
 
 def hamming_tile_pairs_plain(lanes: torch.Tensor, tile_pairs: torch.Tensor,
                              *, tile: int, part_stride: int, part_valid: int,
-                             max_dist: int):
+                             max_dist: int, ids: torch.Tensor | None = None):
     """Plain PyTorch version of the sweep (same contract as
     :func:`hamming_tile_pairs`), on any device: one dense [tile, tile]
     distance matrix per tile pair."""
-    _check(lanes, tile_pairs, tile, part_stride, part_valid, max_dist)
+    _check(lanes, tile_pairs, tile, part_stride, part_valid, max_dist, ids)
     n_rows = lanes.shape[0]
     dev = lanes.device
     vals = lanes_u32(lanes)
@@ -109,6 +120,8 @@ def hamming_tile_pairs_plain(lanes: torch.Tensor, tile_pairs: torch.Tensor,
         mask &= (gc % part_stride < part_valid)[None, :]
         if ti == tj:
             mask &= gc[None, :] > gr[:, None]
+        if ids is not None:
+            mask &= ids[r0:r1, None] == ids[None, c0:c1]
         ri, ci = mask.nonzero(as_tuple=True)
         outs_a.append(gr[ri])
         outs_b.append(gc[ci])
@@ -124,12 +137,14 @@ def _kernel_fn():
 
     fn = _build.load("hamming_sweep").humid_hamming_sweep
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, i64, i32, p, i64, i32, i64, i64, i32, p, p, i64, p, p]
+    fn.argtypes = [p, i64, i32, p, p, i64, i32, i64, i64, i32, p, p, i64, p,
+                   p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _sweep(lanes, pairs, cap, *, tile, part_stride, part_valid, max_dist):
+def _sweep(lanes, pairs, cap, *, tile, part_stride, part_valid, max_dist,
+           ids=None):
     """One pass over ``pairs`` into fresh [cap] buffers -> (out_a, out_b,
     true match count).  The kernel on CUDA tensors; on CPU tensors the
     plain version fills the buffers the way the kernel would."""
@@ -140,7 +155,7 @@ def _sweep(lanes, pairs, cap, *, tile, part_stride, part_valid, max_dist):
     if dev.type == "cpu":
         a, b = hamming_tile_pairs_plain(
             lanes, pairs, tile=tile, part_stride=part_stride,
-            part_valid=part_valid, max_dist=max_dist)
+            part_valid=part_valid, max_dist=max_dist, ids=ids)
         k = min(cap, len(a))
         out_a[:k] = a[:k]
         out_b[:k] = b[:k]
@@ -152,7 +167,7 @@ def _sweep(lanes, pairs, cap, *, tile, part_stride, part_valid, max_dist):
     with torch.cuda.device(dev):
         err = _kernel_fn()(
             lanes.data_ptr(), lanes.shape[0], lanes.shape[1],
-            pairs.data_ptr(), len(pairs), tile, part_stride, part_valid,
+            None if ids is None else ids.data_ptr(), pairs.data_ptr(), len(pairs), tile, part_stride, part_valid,
             max_dist, out_a.data_ptr(), out_b.data_ptr(), cap,
             counter.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -179,14 +194,14 @@ def _sweep_chunk(lanes, pairs, outs, **kw) -> None:
 
 def hamming_tile_pairs(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
                        tile: int, part_stride: int, part_valid: int,
-                       max_dist: int):
+                       max_dist: int, ids: torch.Tensor | None = None):
     """All matching (a, b) of the tile-pair list (module docstring),
     int64, sorted by (a, b).  CUDA tensors run the hand-written kernel
     (``csrc/hamming_sweep.cu``) in chunks of CHUNK_PAIRS tile pairs; CPU
     tensors run :func:`hamming_tile_pairs_plain`."""
-    _check(lanes, tile_pairs, tile, part_stride, part_valid, max_dist)
+    _check(lanes, tile_pairs, tile, part_stride, part_valid, max_dist, ids)
     kw = dict(tile=tile, part_stride=part_stride, part_valid=part_valid,
-              max_dist=max_dist)
+              max_dist=max_dist, ids=ids)
     outs: list = []
     for lo in range(0, len(tile_pairs), CHUNK_PAIRS):
         _sweep_chunk(lanes, tile_pairs[lo:lo + CHUNK_PAIRS], outs, **kw)

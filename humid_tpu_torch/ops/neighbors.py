@@ -11,6 +11,8 @@ Hamming tile sweep (:mod:`.cuda_hamming`):
   run of words sharing a segment are swept.
 
 Both return the same pair set: every unordered pair within ``max_dist``.
+So do the engines of the local device mesh (:mod:`..parallel`), reached
+through the strategies ``ring``, ``sharded`` and ``sharded_bucketed``.
 
 CSR ordering invariant: every node's neighbour list is sorted ascending by
 unique-word index.  This equals the reference's neighbour-list order — the
@@ -22,6 +24,7 @@ order (humid.cc:118-124).
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -30,7 +33,16 @@ import torch
 from .. import words as W
 from .._device import resolve_device
 from .cuda_hamming import hamming_tile_pairs
-from .unique import _stable_argsort_u64
+from .unique import _stable_argsort_u64, _unique_u64
+
+STRATEGY_ENV_VAR = "HUMID_TPU_TORCH_STRATEGY"
+
+#: What the most recent find_neighbor_pairs call in this process ran:
+#: {"strategy": ..., "shards": mesh size (mesh strategies),
+#: "ring_fallbacks": forced-ring calls that went to the dense sweep because
+#: a block exceeded the ring's cap}.  ``pipeline.run`` copies it into
+#: ``PipelineResult.extra["engine"]``.
+LAST_DECISION: dict = {}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -99,6 +111,7 @@ def find_neighbor_pairs(
     strategy: str = "auto",
     runs_threshold: int = 1 << 11,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """All unordered pairs (a, b), a < b, of unique words within
     ``max_dist`` differing bases.
@@ -106,9 +119,19 @@ def find_neighbor_pairs(
     Args:
       packed: [U, W] uint32 unique fingerprints in ascending order.
       max_dist: distance threshold (-m flag).
-      word_length: bases per word (needed by the bucketed engine).
-      strategy: "dense", "bucketed" or "auto" (:func:`choose_engine`).
+      word_length: bases per word (needed by the bucketed engines).
+      strategy: "dense", "bucketed", "auto" (:func:`choose_engine`), or a
+        search over the local device mesh (:mod:`..parallel`): "ring" (the
+        ring kernel; the reference calls it "pallas_ring"), "sharded"
+        (the bucketed mesh search when ``max_dist >= 1``, ``word_length``
+        is known and U > ``runs_threshold``, else the ring) or
+        "sharded_bucketed" (force the bucketed mesh search).
+        $HUMID_TPU_TORCH_STRATEGY replaces "auto"; an explicit argument
+        wins.
       device: torch device of the sweep (see ``_device.resolve_device``).
+      mesh: devices of the mesh strategies, one per shard (default:
+        ``parallel.data_mesh(device=device)``, whose size
+        $HUMID_TPU_TORCH_SHARDS sets).
 
     Returns:
       (a, b): int64 arrays with a < b, sorted by (a, b).
@@ -117,8 +140,18 @@ def find_neighbor_pairs(
     if u <= 1:
         return _empty_pairs()
     dev = resolve_device(device)
+    env_strategy = os.environ.get(STRATEGY_ENV_VAR)
+    if env_strategy and strategy == "auto":
+        strategy = env_strategy
     if strategy == "auto":
         strategy = choose_engine(u, max_dist, word_length, runs_threshold)
+    LAST_DECISION.clear()
+    LAST_DECISION["strategy"] = strategy
+    if strategy in ("ring", "sharded", "sharded_bucketed"):
+        return _mesh_search(packed, max_dist, strategy,
+                            word_length=word_length, tile=tile,
+                            runs_threshold=runs_threshold, device=dev,
+                            mesh=mesh)
     if strategy == "bucketed":
         return find_neighbor_pairs_bucketed(
             packed, max_dist, word_length=word_length, tile=tile, device=dev)
@@ -127,6 +160,38 @@ def find_neighbor_pairs(
     rows, tile_pairs, b, u_pad = dense_inputs(packed, tile)
     return _tile_sweep(rows, tile_pairs, tile=b, u_pad=u_pad, u=u,
                        max_dist=max_dist, device=dev)
+
+
+def _mesh_search(packed, max_dist, strategy, *, word_length, tile,
+                 runs_threshold, device, mesh):
+    """The mesh strategies of :func:`find_neighbor_pairs`."""
+    from .. import parallel as P
+
+    mesh = mesh or P.data_mesh(device=device)
+    LAST_DECISION["shards"] = len(mesh)
+    LAST_DECISION["ring_fallbacks"] = 0
+    if strategy == "sharded_bucketed" or (
+            strategy == "sharded" and max_dist >= 1
+            and word_length is not None and len(packed) > runs_threshold):
+        if word_length is None:
+            raise ValueError("sharded_bucketed strategy requires word_length")
+        return P.sharded_neighbor_pairs_bucketed(
+            packed, max_dist, word_length=word_length, mesh=mesh)
+    if strategy == "sharded":
+        return P.sharded_neighbor_pairs(packed, max_dist, mesh=mesh,
+                                        word_length=word_length)
+    try:
+        return P.sharded_neighbor_pairs_ring(
+            packed, max_dist, word_length=word_length, mesh=mesh)
+    except P.RingLimitExceeded:
+        # A forced ring above its block cap completes through the dense
+        # tile sweep (also a kernel) rather than fail; counted, so a run
+        # can show it did not happen.
+        out = find_neighbor_pairs(packed, max_dist, word_length=word_length,
+                                  tile=tile, strategy="dense", device=device)
+        LAST_DECISION.update(strategy="ring", shards=len(mesh),
+                             ring_fallbacks=1)
+        return out
 
 
 def _segment_run_ids(packed: np.ndarray, word_length: int, n_seg: int):
@@ -158,6 +223,31 @@ def _segment_run_ids(packed: np.ndarray, word_length: int, n_seg: int):
             k = (k << np.uint64(2)) | seg[:, c]
         keys.append(k)
     return keys
+
+
+def _partition_runs(key: np.ndarray):
+    """Sorted order + equal-key run structure of one pigeonhole partition:
+    (order, run_start, run_len), run_start in sorted order.  One fused
+    native ``unique_u64`` call where the host extension is built, else a
+    stable argsort and a compare pass."""
+    n = len(key)
+    if _unique_u64 is not None:
+        order = np.empty(n, np.int64)
+        group_start = np.empty(n, np.int64)
+        counts = np.empty(n, np.int64)
+        first_occ = np.empty(n, np.int64)
+        inv = np.empty(1, np.int64)
+        k = _unique_u64(np.ascontiguousarray(key), order, group_start,
+                        counts, first_occ, inv, 0)
+        return order, group_start[:k], counts[:k]
+    order = _stable_argsort_u64(key)
+    kperm = key[order]
+    new_run = np.empty(n, bool)
+    new_run[0] = True
+    np.not_equal(kperm[1:], kperm[:-1], out=new_run[1:])
+    run_start = np.flatnonzero(new_run)
+    run_len = np.diff(np.append(run_start, n))
+    return order, run_start, run_len
 
 
 def _dedupe_pairs(a: np.ndarray, b: np.ndarray):

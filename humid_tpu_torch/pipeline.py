@@ -35,6 +35,7 @@ from .io import (FastqWriter, build_records, build_records_annotated,
 from .io.reader import is_gzip_file
 from .io.writer import _ann_buffer, _build_output, compress_member
 from .ops import find_neighbor_pairs, pairs_to_csr, unique_words
+from .ops.neighbors import LAST_DECISION
 from .phaselog import PhaseLog
 from .stats import write_statistics
 
@@ -268,7 +269,9 @@ def run(
     neighbour search runs; it is resolved before any input is read, and a
     CUDA request without CUDA raises DeviceUnavailableError.
     ``neighbor_opts`` are extra keyword arguments of
-    :func:`humid_tpu_torch.ops.find_neighbor_pairs`.
+    :func:`humid_tpu_torch.ops.find_neighbor_pairs` (``strategy``,
+    ``mesh``, ...); what the search ran (strategy, shard count, ring
+    fallbacks) is returned in ``PipelineResult.extra["engine"]``.
     """
     if not files:
         raise InputError("at least one FastQ file required")
@@ -361,6 +364,7 @@ def run(
     t = log.start("Calculating neighbours using Hamming distance")
     pa, pb = find_neighbor_pairs(uniq, distance, word_length=word_length,
                                  device=dev, **(neighbor_opts or {}))
+    res.extra["engine"] = dict(LAST_DECISION)
     indptr, indices = pairs_to_csr(pa, pb, res.unique)
     res.degree = np.diff(indptr)
     log.end(t)

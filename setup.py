@@ -34,8 +34,10 @@ setup(
         "humid_tpu_torch.cluster",
         "humid_tpu_torch.io",
         "humid_tpu_torch.ops",
+        "humid_tpu_torch.parallel",
+        "humid_tpu_torch.tools",
     ],
-    package_data={"humid_tpu_torch": ["csrc/*.cu"]},
+    package_data={"humid_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     entry_points={
         "console_scripts": ["humid-tpu = humid_tpu.cli:main",
                             "humid-tpu-torch = humid_tpu_torch.cli:main"],

@@ -1,7 +1,8 @@
 """Tests of humid_tpu_torch that need a CUDA card (``cuda`` marker): the
-hand-written Hamming sweep kernel against its plain PyTorch version on
-the card, the neighbour engines on the card against the CPU, and the CLI
-on the card against baseline/humid_ref.
+hand-written Hamming sweep and ring kernels against their plain PyTorch
+versions on the card, the neighbour engines (the multi-stream ring
+included) on the card against the CPU, and the CLI on the card against
+baseline/humid_ref.
 
 They skip where torch.cuda.is_available() is False.  This file imports no
 jax, so it also runs where JAX is not installed:
@@ -25,6 +26,8 @@ from humid_tpu_torch import words as W
 from humid_tpu_torch.ops import cuda_hamming as K
 from humid_tpu_torch.ops import neighbors as N
 from humid_tpu_torch.ops import unique_words
+from humid_tpu_torch import parallel as P
+from humid_tpu_torch.parallel import cuda_ring as R
 
 sys.path.insert(0, os.path.dirname(__file__))
 from genfastq import gen_dataset  # noqa: E402
@@ -115,6 +118,125 @@ def test_kernel_rejects_too_many_lanes(cuda_device):
     with pytest.raises(ValueError):
         K.hamming_tile_pairs(lanes, tp, tile=256, part_stride=256,
                              part_valid=256, max_dist=1)
+
+
+def test_kernel_with_ids_matches_plain(cuda_device):
+    """The run-id mask: kernel == plain with ids, and ids that are all
+    equal give the unmasked result."""
+    rng = np.random.default_rng(31)
+    rows = _words(rng, 4000, 24, pool=30)
+    lanes, tp = _tensors(rows, _upper_pairs(8), cuda_device)
+    ids = torch.from_numpy(
+        rng.integers(0, 5, 4000).astype(np.int32)).to(cuda_device)
+    kw = dict(tile=512, part_stride=2048, part_valid=1900, max_dist=2)
+    pa, pb = K.hamming_tile_pairs_plain(lanes, tp, ids=ids, **kw)
+    free = K.hamming_tile_pairs(lanes, tp, **kw)
+    assert 0 < len(pa) < len(free[0])
+    for _ in range(2):
+        a, b = K.hamming_tile_pairs(lanes, tp, ids=ids, **kw)
+        assert torch.equal(a, pa) and torch.equal(b, pb)
+    same = K.hamming_tile_pairs(lanes, tp, ids=torch.zeros_like(ids), **kw)
+    assert torch.equal(same[0], free[0]) and torch.equal(same[1], free[1])
+
+
+def _ring_lanes(rng, n, length, device, pool=200):
+    return torch.from_numpy(
+        _words(rng, n, length, pool=pool).view(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("upper_only", [True, False])
+@pytest.mark.parametrize("length", [14, 24, 40])
+def test_ring_kernel_matches_plain(length, upper_only, cuda_device):
+    """Ring kernel == plain on the card for w = 1, 2, 3, twice, with u
+    inside the column block (and, on the upper_only step, inside the row
+    block too) and a block that is no multiple of any tile."""
+    rng = np.random.default_rng(300 + length)
+    b = 3001
+    both = _ring_lanes(rng, 2 * b, length, cuda_device)  # one pool of words
+    rows = both[:b].contiguous()
+    cols = rows if upper_only else both[b:].contiguous()
+    base = 2 * b
+    kw = dict(row_base=base if upper_only else 0, col_base=base,
+              u=base + 1700, max_dist=2, upper_only=upper_only)
+    pa, pb = R.ring_block_pairs_plain(rows, cols, **kw)
+    assert len(pa) > 0 and int(pb.max()) < kw["u"]
+    launches = R.LAUNCHES
+    for _ in range(2):
+        a, bb = R.ring_block_pairs(rows, cols, **kw)
+        assert torch.equal(a, pa) and torch.equal(bb, pb)
+    assert R.LAUNCHES == launches + 2
+
+
+def test_ring_kernel_max_dist_beyond_word_length(cuda_device):
+    """Every valid pair matches; zero padding must stay out."""
+    rows = torch.zeros((1024, 1), dtype=torch.int32, device=cuda_device)
+    rows[:700] = _ring_lanes(np.random.default_rng(3), 700, 16, cuda_device)
+    a, b = R.ring_block_pairs(rows, rows, row_base=0, col_base=0, u=700,
+                              max_dist=20, upper_only=True)
+    ii, jj = np.triu_indices(700, k=1)
+    np.testing.assert_array_equal(a.cpu().numpy(), ii)
+    np.testing.assert_array_equal(b.cpu().numpy(), jj)
+
+
+def test_ring_kernel_capacity_rerun(cuda_device, monkeypatch):
+    rng = np.random.default_rng(8)
+    rows = _ring_lanes(rng, 2048, 24, cuda_device, pool=20)
+    cols = _ring_lanes(rng, 2048, 24, cuda_device, pool=20)  # all pairs match
+    kw = dict(row_base=2048, col_base=0, u=4096, max_dist=24,
+              upper_only=False)
+    pa, pb = R.ring_block_pairs_plain(rows, cols, **kw)
+    assert len(pa) == 2048 * 2048
+    monkeypatch.setattr(R, "CAP_START", 8)
+    launches = R.LAUNCHES
+    a, b = R.ring_block_pairs(rows, cols, **kw)
+    assert torch.equal(a, pa) and torch.equal(b, pb)
+    assert R.LAUNCHES == launches + 2  # overflow, then the exact capacity
+
+
+def test_ring_kernel_rejects_too_many_lanes(cuda_device):
+    t = torch.zeros((256, K.MAX_LANES + 1), dtype=torch.int32,
+                    device=cuda_device)
+    with pytest.raises(ValueError):
+        R.ring_block_pairs(t, t, row_base=0, col_base=0, u=256, max_dist=1,
+                           upper_only=True)
+
+
+@pytest.mark.parametrize("cap_start", [1 << 22, 16])
+def test_multi_stream_ring_matches_one_shard(cap_start, cuda_device,
+                                             monkeypatch):
+    """The ring over d shards (copies and kernels on separate streams)
+    equals d = 1 and the dense sweep, twice in a row; with a tiny first
+    buffer every shard takes the exact-capacity rerun."""
+    rng = np.random.default_rng(41)
+    uniq, _, _, _ = unique_words(_words(rng, 9000, 24, pool=900),
+                                 want_inverse=False)
+    want = N.find_neighbor_pairs(uniq, 2, word_length=24, strategy="dense",
+                                 device=cuda_device)
+    assert len(want[0]) > 0
+    monkeypatch.setattr(R, "CAP_START", cap_start)
+    for d in (1, 2, 3, 4, 8):
+        mesh = P.data_mesh(d, cuda_device)
+        launches = R.LAUNCHES
+        for _ in range(2):
+            got = P.sharded_neighbor_pairs_ring(uniq, 2, word_length=24,
+                                                mesh=mesh)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+        assert R.LAUNCHES > launches
+
+
+@pytest.mark.parametrize("strategy", ["ring", "sharded", "sharded_bucketed"])
+def test_mesh_engines_on_cuda_match_cpu(strategy, cuda_device):
+    rng = np.random.default_rng(78)
+    uniq, _, _, _ = unique_words(_words(rng, 6000, 24, pool=700),
+                                 want_inverse=False)
+    got = N.find_neighbor_pairs(uniq, 2, word_length=24, strategy=strategy,
+                                device=cuda_device,
+                                mesh=P.data_mesh(3, cuda_device))
+    want = N.find_neighbor_pairs(uniq, 2, word_length=24, strategy="dense",
+                                 device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("strategy", ["dense", "bucketed"])

@@ -183,3 +183,43 @@ def test_not_yet_ported_flags_exit_2(flags, tmp_path, capsys):
         main([*flags, "-d", str(tmp_path / "o"), str(tmp_path / "x.fq")])
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_mesh_strategies_write_the_same_bytes(tmp_path):
+    """run() through the ring on 3 shards and through the bucketed mesh
+    search writes the bytes of the default route and of the JAX package's
+    run() through its Pallas ring."""
+    import humid_tpu
+    import humid_tpu_torch
+    from humid_tpu_torch.parallel import data_mesh
+
+    files, extra = _dataset(HAMMING_CASES[1], tmp_path)  # paired, with UMI
+    assert extra == []
+    kw = dict(log_name=os.devnull, run_stats=True, write_annotated=True)
+    humid_tpu.run(files, dir_name=str(tmp_path / "jax"),
+                  neighbor_opts={"strategy": "pallas_ring"}, **kw)
+    humid_tpu_torch.run(files, dir_name=str(tmp_path / "auto"),
+                        device="cpu", **kw)
+    mesh = data_mesh(3, "cpu")
+    for strategy in ("ring", "sharded_bucketed"):
+        res = humid_tpu_torch.run(
+            files, dir_name=str(tmp_path / strategy), device="cpu",
+            neighbor_opts={"strategy": strategy, "mesh": mesh}, **kw)
+        assert res.extra["engine"] == {"strategy": strategy, "shards": 3,
+                                       "ring_fallbacks": 0}
+        _assert_same_dirs(tmp_path / "auto", tmp_path / strategy)
+        _assert_same_dirs(tmp_path / "jax", tmp_path / strategy)
+
+
+def test_cli_honours_strategy_and_shards_variables(humid_ref, cpu_device,
+                                                   tmp_path, monkeypatch):
+    from humid_tpu_torch.ops import neighbors as N
+
+    files, extra = _dataset(HAMMING_CASES[0], tmp_path)
+    _run_ref(humid_ref, tmp_path / "ref", ["-s", "-a", *extra], files)
+    monkeypatch.setenv("HUMID_TPU_TORCH_STRATEGY", "ring")
+    monkeypatch.setenv("HUMID_TPU_TORCH_SHARDS", "4")
+    _run_port(tmp_path / "port", ["-s", "-a", *extra], files)
+    assert N.LAST_DECISION == {"strategy": "ring", "shards": 4,
+                               "ring_fallbacks": 0}
+    _assert_same_dirs(tmp_path / "ref", tmp_path / "port")
