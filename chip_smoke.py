@@ -330,13 +330,21 @@ def end_to_end_phase(n_reads: int, device: str = "cuda") -> dict:
                 "/usr/include/zlib.h") else [])}
 
 
-def _equal_pairs(name, got, want) -> None:
-    """``got`` and ``want`` are (a, b) of numpy arrays or tensors."""
+def _equal_pairs(name, got, want) -> int:
+    """``got`` and ``want`` are (a, b) of numpy arrays or tensors.  Raises
+    unless they are equal; returns the largest absolute difference found
+    (0 when it returns)."""
     host = lambda x: x.cpu().numpy() if hasattr(x, "cpu") else x
+    err = 0
     for g, w_ in zip(got, want):
-        if not np.array_equal(host(g), host(w_)):
-            raise SmokeFailure(f"{name}: pair arrays differ "
-                               f"({len(g)} vs {len(w_)} pairs)")
+        g, w_ = host(g), host(w_)
+        if g.shape != w_.shape:
+            raise SmokeFailure(f"{name}: {len(g)} pairs against {len(w_)}")
+        if len(g):
+            err = max(err, int(np.abs(g - w_).max()))
+    if err:
+        raise SmokeFailure(f"{name}: pair arrays differ (max abs err {err})")
+    return err
 
 
 def _lanes(packed, device):
@@ -346,11 +354,12 @@ def _lanes(packed, device):
         np.int32)).to(device)
 
 
-def ring_step_phase(device, table_w2, table_w3) -> None:
+def ring_step_phase(device, table_w2, table_w3) -> int:
     """Phase 5: the ring kernel against its plain version, one step.  The
     blocks are rows [0, b) and [b, 2b) of an ascending unique table, and
     u = b + b/2 cuts the second block in the middle: on an ``upper_only``
-    step that block is rows and columns, else it is the columns."""
+    step that block is rows and columns, else it is the columns.  Returns
+    the largest absolute difference between kernel and plain pairs."""
     from humid_tpu_torch.parallel import cuda_ring as R
 
     b3 = len(table_w3) // 2
@@ -359,6 +368,7 @@ def ring_step_phase(device, table_w2, table_w3) -> None:
              ("w3_m2", table_w3, b3, 2, True),
              ("w3_m2", table_w3, b3, 2, False),
              ("w3_all_pairs", table_w3, 2048, 48, False)]
+    worst = 0
     for name, table, b, m, upper_only in cases:
         cols = _lanes(table[b:2 * b], device)
         rows = cols if upper_only else _lanes(table[:b], device)
@@ -366,7 +376,8 @@ def ring_step_phase(device, table_w2, table_w3) -> None:
                   u=b + b // 2, max_dist=m, upper_only=upper_only)
         ka, kb = R.ring_block_pairs(rows, cols, **kw)
         pa, pb = R.ring_block_pairs_plain(rows, cols, **kw)
-        _equal_pairs(f"phase 5 {name}", (ka, kb), (pa, pb))
+        err = _equal_pairs(f"phase 5 {name}", (ka, kb), (pa, pb))
+        worst = max(worst, err)
         _equal_pairs(f"phase 5 {name} (second launch)",
                      R.ring_block_pairs(rows, cols, **kw), (ka, kb))
         if not len(ka):
@@ -380,8 +391,9 @@ def ring_step_phase(device, table_w2, table_w3) -> None:
         plain = time_cuda(
             lambda: R.ring_block_pairs_plain(rows, cols, **kw), 1)
         say(f"phase 5 {name} upper_only={upper_only}: kernel == plain "
-            f"(tolerance 0); b {b}, pairs {len(ka)}, kernel {ms:.3f} ms, "
-            f"plain {plain:.3f} ms")
+            f"(tolerance 0, max abs err {err}); b {b}, pairs {len(ka)}, "
+            f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    return worst
 
 
 def ids_phase(device, uniq) -> None:
@@ -521,8 +533,9 @@ def ring_main_shape_phase(device, uniq, card) -> dict:
     # One step at this shape: shard 0 against block 1 (not upper_only).
     kw = dict(row_base=0, col_base=b, u=u, max_dist=1, upper_only=False)
     step = R.ring_block_pairs(blocks[0], blocks[1], **kw)
-    _equal_pairs("phase 8 one step vs plain", step,
-                 R.ring_block_pairs_plain(blocks[0], blocks[1], **kw))
+    step_err = _equal_pairs(
+        "phase 8 one step vs plain", step,
+        R.ring_block_pairs_plain(blocks[0], blocks[1], **kw))
     ms = time_cuda(lambda: R.ring_block_pairs(blocks[0], blocks[1], **kw), 5)
     plain_ms = time_cuda(
         lambda: R.ring_block_pairs_plain(blocks[0], blocks[1], **kw), 1)
@@ -537,7 +550,8 @@ def ring_main_shape_phase(device, uniq, card) -> dict:
            "evaluations_per_s": evaluations / (kernel_ms * 1e-3),
            "ring_bound_ms": ring_bound["bound_ms"], "ring_wall_ms":
            ring_wall, "slot_bytes": b * w * 4, "step_ms": ms,
-           "step_plain_ms": plain_ms, **step_bound}
+           "step_plain_ms": plain_ms, "max_abs_err": step_err,
+           **step_bound}
     say(f"phase 8: ring at the main path's size == bucketed sweep; "
         f"{json.dumps(out)}")
     return out
@@ -640,7 +654,7 @@ def main() -> int:
     sweeps, tables = sweep_phase(device)
     e2e = end_to_end_phase(1_000_000)
     uniq_1m = tables["bucketed_1M_reads"]
-    ring_step_phase(device, uniq_1m, tables["dense_L33_m2"])
+    ring_err = ring_step_phase(device, uniq_1m, tables["dense_L33_m2"])
     ids_phase(device, uniq_1m)
     ring_schedule_phase(device, sample_uniques(400_000, 24, 1,
                                                seed=7)[:65536])
@@ -662,7 +676,8 @@ def main() -> int:
         "name": "ring_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/ring_sweep.cu",
         "replaces": "humid_tpu/parallel/pallas_ring.py:75",
-        "launches": mesh_launches["ring"], "max_abs_err": 0,
+        "launches": mesh_launches["ring"],
+        "max_abs_err": max(ring_err, ring["max_abs_err"]),
         "ms": ring["step_ms"], "plain_ms": ring["step_plain_ms"],
         "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
         "library_ms": no_library}]}))

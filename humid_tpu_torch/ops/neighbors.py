@@ -37,13 +37,6 @@ from .unique import _stable_argsort_u64, _unique_u64
 
 STRATEGY_ENV_VAR = "HUMID_TPU_TORCH_STRATEGY"
 
-#: What the most recent find_neighbor_pairs call in this process ran:
-#: {"strategy": ..., "shards": mesh size (mesh strategies),
-#: "ring_fallbacks": forced-ring calls that went to the dense sweep because
-#: a block exceeded the ring's cap}.  ``pipeline.run`` copies it into
-#: ``PipelineResult.extra["engine"]``.
-LAST_DECISION: dict = {}
-
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -112,6 +105,7 @@ def find_neighbor_pairs(
     runs_threshold: int = 1 << 11,
     device: str | torch.device | None = None,
     mesh=None,
+    info: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """All unordered pairs (a, b), a < b, of unique words within
     ``max_dist`` differing bases.
@@ -132,26 +126,30 @@ def find_neighbor_pairs(
       mesh: devices of the mesh strategies, one per shard (default:
         ``parallel.data_mesh(device=device)``, whose size
         $HUMID_TPU_TORCH_SHARDS sets).
+      info: if given, a dict that receives what this call ran:
+        "strategy" and, for the mesh strategies, "shards" (mesh size) and
+        "ring_fallbacks" (1 if a forced ring went to the dense sweep
+        because a block exceeded the ring's cap, else 0).
 
     Returns:
       (a, b): int64 arrays with a < b, sorted by (a, b).
     """
     u, w = packed.shape
-    if u <= 1:
-        return _empty_pairs()
-    dev = resolve_device(device)
     env_strategy = os.environ.get(STRATEGY_ENV_VAR)
     if env_strategy and strategy == "auto":
         strategy = env_strategy
     if strategy == "auto":
         strategy = choose_engine(u, max_dist, word_length, runs_threshold)
-    LAST_DECISION.clear()
-    LAST_DECISION["strategy"] = strategy
+    info = {} if info is None else info
+    info["strategy"] = strategy
+    if u <= 1:
+        return _empty_pairs()
+    dev = resolve_device(device)
     if strategy in ("ring", "sharded", "sharded_bucketed"):
         return _mesh_search(packed, max_dist, strategy,
                             word_length=word_length, tile=tile,
                             runs_threshold=runs_threshold, device=dev,
-                            mesh=mesh)
+                            mesh=mesh, info=info)
     if strategy == "bucketed":
         return find_neighbor_pairs_bucketed(
             packed, max_dist, word_length=word_length, tile=tile, device=dev)
@@ -163,13 +161,12 @@ def find_neighbor_pairs(
 
 
 def _mesh_search(packed, max_dist, strategy, *, word_length, tile,
-                 runs_threshold, device, mesh):
+                 runs_threshold, device, mesh, info):
     """The mesh strategies of :func:`find_neighbor_pairs`."""
     from .. import parallel as P
 
     mesh = mesh or P.data_mesh(device=device)
-    LAST_DECISION["shards"] = len(mesh)
-    LAST_DECISION["ring_fallbacks"] = 0
+    info.update(shards=len(mesh), ring_fallbacks=0)
     if strategy == "sharded_bucketed" or (
             strategy == "sharded" and max_dist >= 1
             and word_length is not None and len(packed) > runs_threshold):
@@ -187,11 +184,9 @@ def _mesh_search(packed, max_dist, strategy, *, word_length, tile,
         # A forced ring above its block cap completes through the dense
         # tile sweep (also a kernel) rather than fail; counted, so a run
         # can show it did not happen.
-        out = find_neighbor_pairs(packed, max_dist, word_length=word_length,
-                                  tile=tile, strategy="dense", device=device)
-        LAST_DECISION.update(strategy="ring", shards=len(mesh),
-                             ring_fallbacks=1)
-        return out
+        info["ring_fallbacks"] = 1
+        return find_neighbor_pairs(packed, max_dist, word_length=word_length,
+                                   tile=tile, strategy="dense", device=device)
 
 
 def _segment_run_ids(packed: np.ndarray, word_length: int, n_seg: int):

@@ -66,12 +66,14 @@ class RingLimitExceeded(ValueError):
     back to the dense tile sweep."""
 
 
-def ring_fits(u: int, d: int | None = None) -> bool:
+def ring_fits(u: int, d: int | None = None,
+              block_cap: int | None = None) -> bool:
     """Would the per-shard block of a ``u``-row table on ``d`` shards (the
-    default mesh's size when None) stay within the ring's block cap?"""
+    default mesh's size when None) stay within ``block_cap`` (default: the
+    ring's block cap)?"""
     if d is None:
         d = len(data_mesh())
-    return -(-u // max(d, 1)) <= RING_MAX_BLOCK
+    return -(-u // max(d, 1)) <= (block_cap or RING_MAX_BLOCK)
 
 
 def ring_schedule(d: int) -> list[tuple[int, int, int, bool, bool]]:
@@ -338,7 +340,7 @@ def sharded_neighbor_pairs_ring(
     if u <= 1 or max_dist == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     b = -(-u // d)
-    if b > (block_cap or RING_MAX_BLOCK):
+    if not ring_fits(u, d, block_cap):
         raise RingLimitExceeded(
             f"per-shard block {b} exceeds block_cap "
             f"{block_cap or RING_MAX_BLOCK}; shard the table first")

@@ -22,8 +22,6 @@ port of ``ops/edit.py`` (ROADMAP item 9).
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
@@ -35,6 +33,11 @@ from .cuda_ring import sharded_neighbor_pairs_ring
 from .mesh import data_mesh
 
 __all__ = ["sharded_neighbor_pairs", "sharded_neighbor_pairs_bucketed"]
+
+
+class GiantRuns(ValueError):
+    """Equal-key runs above ``run_cap`` cover more rows than the table
+    has: the bucketed layout is degenerate for this data."""
 
 
 def sharded_neighbor_pairs(
@@ -81,8 +84,8 @@ def bucketed_shard_inputs(packed: np.ndarray, max_dist: int,
     """Host prep of the bucketed mesh search: partitions -> runs -> shard
     assignment -> per-shard sweep inputs.
 
-    Returns ``None`` when no run holds two words, the string ``"dense"``
-    when giant runs make the layout degenerate (see
+    Returns ``None`` when no run holds two words and raises
+    :class:`GiantRuns` when giant runs make the layout degenerate (see
     :func:`sharded_neighbor_pairs_bucketed`), else a dict with ``tile``,
     ``r_pad`` and, per shard, ``rows`` [r_pad, w] uint32, ``ids`` [r_pad]
     int32 (padding rows carry distinct negative ids), ``tile_pairs``
@@ -108,7 +111,8 @@ def bucketed_shard_inputs(packed: np.ndarray, max_dist: int,
     if len(r_len) == 0:
         return None
     if int(r_len[r_len > run_cap].sum()) > u:
-        return "dense"
+        raise GiantRuns(f"runs above {run_cap} words hold "
+                        f"{int(r_len[r_len > run_cap].sum())} rows of {u}")
 
     # Heaviest-first snake assignment by descending pair count.
     weights = r_len * (r_len - 1) // 2
@@ -190,33 +194,31 @@ def sharded_neighbor_pairs_bucketed(
     shards that own the giants; it goes to the dense ring instead, which
     does O(U²/d) work uniformly.
 
-    The shards are swept in turn, each on its own device under a stream
-    of its own."""
+    The shards are swept in turn, each on its own device."""
     mesh = mesh or data_mesh(device=device)
     u, w = packed.shape
     if u <= 1 or max_dist == 0:
         return _empty_pairs()
-    prep = bucketed_shard_inputs(packed, max_dist, word_length, len(mesh),
-                                 tile, run_cap)
-    if prep is None:
-        return _empty_pairs()
-    if prep == "dense":
+    try:
+        prep = bucketed_shard_inputs(packed, max_dist, word_length,
+                                     len(mesh), tile, run_cap)
+    except GiantRuns:
         return sharded_neighbor_pairs(packed, max_dist, mesh=mesh,
                                       cap_row=cap_row,
                                       word_length=word_length)
+    if prep is None:
+        return _empty_pairs()
     parts_a, parts_b = [], []
     for si, dev in enumerate(mesh):
         if not prep["urows"][si]:
             continue
-        with torch.cuda.stream(torch.cuda.Stream(dev)) \
-                if dev.type == "cuda" else contextlib.nullcontext():
-            lanes, tp = sweep_tensors(prep["rows"][si],
-                                      prep["tile_pairs"][si], dev)
-            ids = torch.from_numpy(prep["ids"][si]).to(dev)
-            a, b = hamming_tile_pairs(
-                lanes, tp, tile=prep["tile"], part_stride=prep["r_pad"],
-                part_valid=prep["urows"][si], max_dist=max_dist, ids=ids)
-            a, b = a.cpu().numpy(), b.cpu().numpy()
+        lanes, tp = sweep_tensors(prep["rows"][si], prep["tile_pairs"][si],
+                                  dev)
+        ids = torch.from_numpy(prep["ids"][si]).to(dev)
+        a, b = hamming_tile_pairs(
+            lanes, tp, tile=prep["tile"], part_stride=prep["r_pad"],
+            part_valid=prep["urows"][si], max_dist=max_dist, ids=ids)
+        a, b = a.cpu().numpy(), b.cpu().numpy()
         ga, gb = prep["gmaps"][si][a], prep["gmaps"][si][b]
         parts_a.append(np.minimum(ga, gb))
         parts_b.append(np.maximum(ga, gb))

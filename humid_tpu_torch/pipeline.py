@@ -35,7 +35,6 @@ from .io import (FastqWriter, build_records, build_records_annotated,
 from .io.reader import is_gzip_file
 from .io.writer import _ann_buffer, _build_output, compress_member
 from .ops import find_neighbor_pairs, pairs_to_csr, unique_words
-from .ops.neighbors import LAST_DECISION
 from .phaselog import PhaseLog
 from .stats import write_statistics
 
@@ -362,9 +361,10 @@ def run(
 
     # --- neighbour search (humid.cc:113-158) ---
     t = log.start("Calculating neighbours using Hamming distance")
+    engine = res.extra["engine"] = {}
     pa, pb = find_neighbor_pairs(uniq, distance, word_length=word_length,
-                                 device=dev, **(neighbor_opts or {}))
-    res.extra["engine"] = dict(LAST_DECISION)
+                                 device=dev, info=engine,
+                                 **(neighbor_opts or {}))
     indptr, indices = pairs_to_csr(pa, pb, res.unique)
     res.degree = np.diff(indptr)
     log.end(t)

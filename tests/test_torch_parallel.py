@@ -92,8 +92,8 @@ def test_sharded_bucketed_giant_runs_fall_back_to_ring(monkeypatch):
     uniq = _uniq(codes)
     want = JP.sharded_neighbor_pairs_bucketed(
         uniq, 2, word_length=24, mesh=JP.data_mesh(4), cap_row=8, run_cap=16)
-    assert P.neighbors.bucketed_shard_inputs(uniq, 2, 24, 4,
-                                             run_cap=16) == "dense"
+    with pytest.raises(P.neighbors.GiantRuns):
+        P.neighbors.bucketed_shard_inputs(uniq, 2, 24, 4, run_cap=16)
     swept = []
     monkeypatch.setattr(
         P.neighbors, "hamming_tile_pairs",
@@ -131,12 +131,12 @@ def test_strategy_dispatch(strategy):
     jax_strategy = "pallas_ring" if strategy == "ring" else strategy
     want = JN.find_neighbor_pairs(uniq, 1, word_length=24,
                                   strategy=jax_strategy, runs_threshold=16)
+    info = {}
     got = N.find_neighbor_pairs(uniq, 1, word_length=24, strategy=strategy,
                                 runs_threshold=16, device="cpu",
-                                mesh=_cpu_mesh(3))
+                                mesh=_cpu_mesh(3), info=info)
     _same(got, want)
-    assert N.LAST_DECISION == {"strategy": strategy, "shards": 3,
-                               "ring_fallbacks": 0}
+    assert info == {"strategy": strategy, "shards": 3, "ring_fallbacks": 0}
 
 
 def test_sharded_below_threshold_takes_ring(monkeypatch):
@@ -167,11 +167,13 @@ def test_environment_variables(monkeypatch):
     monkeypatch.setenv("HUMID_TPU_TORCH_SHARDS", "5")
     monkeypatch.setenv("HUMID_TPU_TORCH_DEVICE", "cpu")
     assert P.data_mesh() == (torch.device("cpu"),) * 5
-    _same(N.find_neighbor_pairs(uniq, 1, word_length=24), want)
-    assert N.LAST_DECISION == {"strategy": "ring", "shards": 5,
-                               "ring_fallbacks": 0}
-    N.find_neighbor_pairs(uniq, 1, word_length=24, strategy="dense")
-    assert N.LAST_DECISION == {"strategy": "dense"}
+    info = {}
+    _same(N.find_neighbor_pairs(uniq, 1, word_length=24, info=info), want)
+    assert info == {"strategy": "ring", "shards": 5, "ring_fallbacks": 0}
+    info = {}
+    N.find_neighbor_pairs(uniq, 1, word_length=24, strategy="dense",
+                          info=info)
+    assert info == {"strategy": "dense"}
 
 
 def test_data_mesh():
@@ -194,6 +196,7 @@ def test_block_cap_raises_and_forced_ring_falls_back():
     assert issubclass(P.RingLimitExceeded, ValueError)
     assert P.ring_fits(1 << 22, 1) and not P.ring_fits((1 << 22) + 1, 1)
     assert P.ring_fits((1 << 23), 2)
+    assert P.ring_fits(2048, 2, 1024) and not P.ring_fits(2049, 2, 1024)
 
 
 def test_forced_ring_above_cap_goes_dense(monkeypatch):
@@ -202,10 +205,25 @@ def test_forced_ring_above_cap_goes_dense(monkeypatch):
     want = N.find_neighbor_pairs(uniq, 1, word_length=24, strategy="dense",
                                  device="cpu")
     monkeypatch.setattr(R, "RING_MAX_BLOCK", 64)
+    info = {}
     _same(N.find_neighbor_pairs(uniq, 1, word_length=24, strategy="ring",
-                                device="cpu", mesh=_cpu_mesh(2)), want)
-    assert N.LAST_DECISION == {"strategy": "ring", "shards": 2,
-                               "ring_fallbacks": 1}
+                                device="cpu", mesh=_cpu_mesh(2), info=info),
+          want)
+    assert info == {"strategy": "ring", "shards": 2, "ring_fallbacks": 1}
+
+
+def test_one_unique_word_reports_its_own_decision():
+    """A table with one word returns no pair and still says what it was
+    asked to run, whatever an earlier call ran."""
+    rng = np.random.default_rng(93)
+    uniq = _uniq(_dataset(rng, 300, 24))
+    N.find_neighbor_pairs(uniq, 1, word_length=24, strategy="ring",
+                          device="cpu", mesh=_cpu_mesh(3), info={})
+    info = {}
+    a, b = N.find_neighbor_pairs(uniq[:1], 1, word_length=24, device="cpu",
+                                 info=info)
+    assert len(a) == 0 and len(b) == 0
+    assert info == {"strategy": "dense"}
 
 
 @pytest.mark.parametrize("d", range(1, 10))

@@ -213,13 +213,16 @@ def test_mesh_strategies_write_the_same_bytes(tmp_path):
 
 def test_cli_honours_strategy_and_shards_variables(humid_ref, cpu_device,
                                                    tmp_path, monkeypatch):
-    from humid_tpu_torch.ops import neighbors as N
+    from humid_tpu_torch import cli, pipeline
 
     files, extra = _dataset(HAMMING_CASES[0], tmp_path)
     _run_ref(humid_ref, tmp_path / "ref", ["-s", "-a", *extra], files)
     monkeypatch.setenv("HUMID_TPU_TORCH_STRATEGY", "ring")
     monkeypatch.setenv("HUMID_TPU_TORCH_SHARDS", "4")
+    results = []
+    monkeypatch.setattr(
+        cli, "run", lambda *a, **k: results.append(pipeline.run(*a, **k)))
     _run_port(tmp_path / "port", ["-s", "-a", *extra], files)
-    assert N.LAST_DECISION == {"strategy": "ring", "shards": 4,
-                               "ring_fallbacks": 0}
+    assert [r.extra["engine"] for r in results] == [
+        {"strategy": "ring", "shards": 4, "ring_fallbacks": 0}]
     _assert_same_dirs(tmp_path / "ref", tmp_path / "port")
