@@ -17,7 +17,13 @@ Phases, each printing its own line; any failure exits non-zero:
    10M-read sample (~2e6 uniques), both w = 2, tile 2048, m = 1; and a
    dense table of ~1.6e4 uniques, L = 33 (w = 3), m = 2, with partition
    padding.  The (a, b) pair arrays must be identical (integer work: no
-   tolerance).  Times are CUDA-event means after a warm-up.
+   tolerance).  Three times per shape, CUDA-event means after a warm-up:
+   ``kernel_ms``, the kernel alone (the launches of one call into a
+   buffer allocated beforehand, nothing else between the events);
+   ``ms``, the wrapper ``hamming_tile_pairs`` (allocation, launch, the
+   one read-back, the sort); ``plain_ms``, the plain version.  Beside
+   them the card's bound for the shape and the kernel's share of it; a
+   kernel time below its bound fails the phase.
 4. End to end: a 1M-read sample made by the benchmark recipe (single-end
    100 bp, dup factor 8, 30% one-substitution reads; bench.py's
    gen_dataset), run with ``-n 24 -m 1 -s -a`` on the card in process
@@ -33,24 +39,28 @@ Phases, each printing its own line; any failure exits non-zero:
    and w = 3 with max_dist >= 16 w, where every valid pair matches.  Two
    launches give identical sorted arrays.
 6. The tile sweep with a run-id mask vs its plain version, on one shard's
-   input of the bucketed mesh search built from the 1M-read table.
+   input of the bucketed mesh search built from the 1M-read table; the
+   same three times and the bound.
 7. The whole ring on a 65,536-unique table (w = 2, m = 1) for 1, 2, 3, 4
    and 8 shards on the one card, twice each: every result must equal the
    plain ring at 3 shards (the schedule driven through the plain step)
    and the dense tile sweep.  1 and 4 shards are timed.
 8. The ring at the main path's size: the 1M-read table on 4 shards must
    equal the bucketed tile sweep; kernel time (CUDA events around the
-   schedule's launches), launches and pair evaluations/s are printed.
+   schedule's launches), launches and pair evaluations/s are printed,
+   and for one step the kernel alone, the wrapper and the plain version.
 9. End to end through the mesh: the phase-4 file with
    ``neighbor_opts={"strategy": "ring"}`` on 4 shards (ring launch count
    reset before, >= 1 required after), with ``"sharded_bucketed"`` (tile
    sweep launches >= 1), and through ``python -m humid_tpu_torch`` with
    HUMID_TPU_TORCH_STRATEGY=ring HUMID_TPU_TORCH_SHARDS=4; all outputs
    byte-identical to phase 4's and to baseline/humid_ref.
-10. One JSON line describing both kernels (launches on their end-to-end
-    runs, time, plain time, the card's bound for the same work), the
-    card's nvidia-smi line, then the result line
-    ``{"ok": true, "device": {...}}``.
+10. One JSON line describing both kernels: launches on their end-to-end
+    runs; ``ms``, the kernel alone (phase 3's ``kernel_ms`` at the 1M-read
+    table for the tile sweep, phase 8's one step for the ring);
+    ``wrapper_ms``, the same call through its wrapper; ``plain_ms``; the
+    card's bound for the same work.  Then the card's nvidia-smi line and
+    the result line ``{"ok": true, "device": {...}}``.
 
 Scratch files go to build/chip_smoke/ inside the checkout.
 """
@@ -168,20 +178,72 @@ def sweep_evaluations(n_rows, tile_pairs, tile, part_stride,
 
 
 def bound_ms(evaluations: int, w: int, n_bytes: int, card: dict) -> dict:
-    """Least time the card could take: the larger of the bytes moved over
-    the memory rate (3.35e12 B/s, the H100 data sheet) and the POPC
-    operations (w per evaluated pair) over SMs x 16 POPC/clock x the
-    card's maximum SM clock."""
-    ops_ms = evaluations * w / (card["sms"] * 16 * card["sm_hz"]) * 1e3
+    """Least time the card could take for ``evaluations`` word pairs of
+    ``w`` lanes: the largest of
+
+    * the bytes moved over the memory rate (3.35e12 B/s, the H100 data
+      sheet);
+    * the POPC operations over SMs x 16 POPC/clock x the card's maximum
+      SM clock.  The function needs one POPC per 32 bases, ceil(w / 2) a
+      pair: with the words split into bit planes a 32-base difference
+      mask is (lo_r ^ lo_c) | (hi_r ^ hi_c).  (One POPC per 16-base lane,
+      w a pair, is what the lane form spends, not what the work needs.)
+    * the other integer operations of that form, the cheapest known (an
+      XOR and a three-input logic operation per POPC, and an add or the
+      final compare: 3 ceil(w / 2) a pair), over SMs x 64/clock.
+
+    POPC always comes out ahead of the integer operations (1/16 against
+    3/64 of a clock per plane pair); both are computed so that a cheaper
+    formulation of either would show."""
+    plane_pairs = -(-w // 2)
+    per_s = card["sms"] * card["sm_hz"]
+    popc_ms = evaluations * plane_pairs / (16 * per_s) * 1e3
+    int_ms = evaluations * 3 * plane_pairs / (64 * per_s) * 1e3
     bytes_ms = n_bytes / 3.35e12 * 1e3
+    ops_ms = max(popc_ms, int_ms)
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def within_bound(name: str, kernel_ms: float, bound: dict) -> float:
+    """The bound's share of the kernel's time (1.0: the kernel runs at the
+    bound).  A kernel faster than its bound means the bound or the timing
+    is wrong: that fails."""
+    if kernel_ms < bound["bound_ms"]:
+        raise SmokeFailure(f"{name}: kernel {kernel_ms} ms is below its "
+                           f"bound {bound['bound_ms']} ms")
+    return bound["bound_ms"] / kernel_ms
+
+
+def sweep_kernel_ms(lanes, tp, kw, n_pairs: int, reps: int) -> float:
+    """The tile sweep's kernel alone: the launches of one call (chunked as
+    the wrapper chunks) into a buffer allocated beforehand, between two
+    CUDA events.  The counter must end at ``n_pairs``."""
+    import torch
+
+    from humid_tpu_torch.ops import cuda_hamming as K
+
+    keys = torch.empty(max(n_pairs, 1), dtype=torch.int64,
+                       device=lanes.device)
+    counter = torch.zeros(2, dtype=torch.int64, device=lanes.device)
+
+    def launches():
+        counter.zero_()
+        for lo in range(0, len(tp), K.CHUNK_PAIRS):
+            K._launch(lanes, tp[lo:lo + K.CHUNK_PAIRS], keys, counter, **kw)
+
+    ms = time_cuda(launches, reps)
+    if counter.tolist() != [n_pairs, 0]:
+        raise SmokeFailure(f"the timed launches left the counter at "
+                           f"{counter.tolist()}, expected [{n_pairs}, 0]")
+    return ms
+
+
 def kernel_vs_plain(name, rows, tile_pairs, *, tile, u_pad, u, max_dist,
-                    device, reps: int = 5, plain_reps: int = 1) -> dict:
+                    device, card, reps: int = 5, plain_reps: int = 1) -> dict:
     """Run the sweep's kernel wrapper and its plain version on the same
-    device tensors; require identical pair arrays; time both."""
+    device tensors; require identical pair arrays; time the kernel alone,
+    the wrapper and the plain version."""
     import torch
 
     from humid_tpu_torch.ops import cuda_hamming as K
@@ -203,21 +265,24 @@ def kernel_vs_plain(name, rows, tile_pairs, *, tile, u_pad, u, max_dist,
     again = K.hamming_tile_pairs(lanes, tp, **kw)
     if not (torch.equal(again[0], ka) and torch.equal(again[1], kb)):
         raise SmokeFailure(f"{name}: two kernel runs differ")
+    kernel_ms = sweep_kernel_ms(lanes, tp, kw, len(ka), 4 * reps)
     ms = time_cuda(lambda: K.hamming_tile_pairs(lanes, tp, **kw), reps)
     plain_ms = time_cuda(lambda: K.hamming_tile_pairs_plain(lanes, tp, **kw),
                          plain_reps)
+    evaluations = sweep_evaluations(len(rows), tile_pairs, tile, u_pad, u)
+    bound = bound_ms(evaluations, int(lanes.shape[1]),
+                     lanes.numel() * 4 + tp.numel() * 4 + 16 * len(ka), card)
     out = {"rows": int(lanes.shape[0]), "w": int(lanes.shape[1]),
            "tile_pairs": int(len(tp)), "pairs": int(len(ka)),
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "evaluations": sweep_evaluations(len(rows), tile_pairs, tile,
-                                            u_pad, u),
-           "bytes": lanes.numel() * 4 + tp.numel() * 4 + 16 * len(ka)}
+           "max_abs_err": err, "kernel_ms": kernel_ms, "ms": ms,
+           "plain_ms": plain_ms, "evaluations": evaluations, **bound,
+           "bound_share": within_bound(name, kernel_ms, bound)}
     say(f"phase 3 {name}: kernel == plain (tolerance 0, integer pairs); "
         f"{json.dumps(out)}")
     return out
 
 
-def sweep_phase(device) -> dict:
+def sweep_phase(device, card) -> dict:
     from humid_tpu_torch.ops.neighbors import bucketed_inputs, dense_inputs
 
     results, tables = {}, {}
@@ -229,13 +294,13 @@ def sweep_phase(device) -> dict:
         say(f"phase 3 {name}: {len(uniq)} uniques, {len(tps)} tile pairs")
         results[name] = kernel_vs_plain(
             name, rows, tps, tile=b, u_pad=u_pad, u=len(uniq), max_dist=1,
-            device=device)
+            device=device, card=card)
     uniq = tables["dense_L33_m2"] = sample_uniques(72_000, 33, 2, seed=33)
     rows, tps, b, u_pad = dense_inputs(uniq, 2048)
     say(f"phase 3 dense_L33_m2: {len(uniq)} uniques, u_pad {u_pad}")
     results["dense_L33_m2"] = kernel_vs_plain(
         "dense_L33_m2", rows, tps, tile=b, u_pad=u_pad, u=len(uniq),
-        max_dist=2, device=device, reps=20, plain_reps=3)
+        max_dist=2, device=device, card=card, reps=20, plain_reps=3)
     return results, tables
 
 
@@ -396,9 +461,11 @@ def ring_step_phase(device, table_w2, table_w3) -> int:
     return worst
 
 
-def ids_phase(device, uniq) -> None:
+def ids_phase(device, uniq, card) -> None:
     """Phase 6: the tile sweep with a run-id mask against its plain
-    version, on shard 0's input of the bucketed mesh search."""
+    version, on shard 0's input of the bucketed mesh search.  Its bound
+    counts every valid pair of the tile pairs, as without ids: the mask
+    is looked at after the distance, it spares the kernel no compare."""
     import torch
 
     from humid_tpu_torch.ops import cuda_hamming as K
@@ -418,13 +485,24 @@ def ids_phase(device, uniq) -> None:
     if not 0 < len(got[0]) <= len(free[0]):
         raise SmokeFailure(f"phase 6: {len(got[0])} masked pairs against "
                            f"{len(free[0])} unmasked")
+    kernel_ms = sweep_kernel_ms(lanes, tp, kw, len(got[0]), 20)
     ms = time_cuda(lambda: K.hamming_tile_pairs(lanes, tp, **kw), 5)
     free_ms = time_cuda(
         lambda: K.hamming_tile_pairs(lanes, tp, **{**kw, "ids": None}), 5)
+    evaluations = sweep_evaluations(
+        len(prep["rows"][0]), prep["tile_pairs"][0], prep["tile"],
+        prep["r_pad"], prep["urows"][0])
+    bound = bound_ms(evaluations, int(lanes.shape[1]),
+                     lanes.numel() * 4 + tp.numel() * 4 + ids.numel() * 4
+                     + 16 * len(got[0]), card)
+    share = within_bound("phase 6", kernel_ms, bound)
     say(f"phase 6: tile sweep with ids == plain (tolerance 0); shard 0 of "
         f"4: {prep['urows'][0]} rows, tile {prep['tile']}, {len(tp)} tile "
         f"pairs, {len(got[0])} pairs ({len(free[0])} without the mask), "
-        f"{ms:.3f} ms with ids, {free_ms:.3f} ms without")
+        f"{evaluations} evaluations; kernel alone {kernel_ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; share "
+        f"{share:.3f}); wrapper {ms:.3f} ms with ids, {free_ms:.3f} ms "
+        f"without")
 
 
 def plain_ring(uniq, max_dist, d, device):
@@ -539,6 +617,16 @@ def ring_main_shape_phase(device, uniq, card) -> dict:
     ms = time_cuda(lambda: R.ring_block_pairs(blocks[0], blocks[1], **kw), 5)
     plain_ms = time_cuda(
         lambda: R.ring_block_pairs_plain(blocks[0], blocks[1], **kw), 1)
+
+    def one_step():
+        buf.counter.zero_()
+        R._step(blocks[0], blocks[1], buf, **kw)
+
+    step_kernel_ms = time_cuda(one_step, 20)
+    if int(buf.counter.item()) != len(step[0]):
+        raise SmokeFailure(f"phase 8: the timed step counted "
+                           f"{int(buf.counter.item())} pairs, expected "
+                           f"{len(step[0])}")
     step_bound = bound_ms(valid[0] * valid[1], w,
                           2 * b * w * 4 + 16 * len(step[0]), card)
     ring_bound = bound_ms(evaluations, w,
@@ -548,10 +636,15 @@ def ring_main_shape_phase(device, uniq, card) -> dict:
            "launches_per_ring": launches, "evaluations": evaluations,
            "pairs": len(want[0]), "kernel_ms_all_steps": kernel_ms,
            "evaluations_per_s": evaluations / (kernel_ms * 1e-3),
-           "ring_bound_ms": ring_bound["bound_ms"], "ring_wall_ms":
-           ring_wall, "slot_bytes": b * w * 4, "step_ms": ms,
+           "ring_bound_ms": ring_bound["bound_ms"],
+           "ring_bound_share": within_bound("phase 8 ring", kernel_ms,
+                                            ring_bound),
+           "ring_wall_ms": ring_wall, "slot_bytes": b * w * 4,
+           "step_kernel_ms": step_kernel_ms, "step_ms": ms,
            "step_plain_ms": plain_ms, "max_abs_err": step_err,
-           **step_bound}
+           **step_bound,
+           "bound_share": within_bound("phase 8 step", step_kernel_ms,
+                                       step_bound)}
     say(f"phase 8: ring at the main path's size == bucketed sweep; "
         f"{json.dumps(out)}")
     return out
@@ -651,11 +744,11 @@ def main() -> int:
         say(lib.with_suffix(".log").read_text().strip())
 
     device = torch.device("cuda")
-    sweeps, tables = sweep_phase(device)
+    sweeps, tables = sweep_phase(device, card_info)
     e2e = end_to_end_phase(1_000_000)
     uniq_1m = tables["bucketed_1M_reads"]
     ring_err = ring_step_phase(device, uniq_1m, tables["dense_L33_m2"])
-    ids_phase(device, uniq_1m)
+    ids_phase(device, uniq_1m, card_info)
     ring_schedule_phase(device, sample_uniques(400_000, 24, 1,
                                                seed=7)[:65536])
     ring = ring_main_shape_phase(device, uniq_1m, card_info)
@@ -669,16 +762,20 @@ def main() -> int:
         "replaces": "humid_tpu/ops/pallas_hamming.py:60",
         "launches": e2e["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in sweeps.values()),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        **bound_ms(main_shape["evaluations"], main_shape["w"],
-                   main_shape["bytes"], card_info),
+        # ms: the kernel alone, for both kernels; wrapper_ms: through the
+        # wrapper (allocation, read-back and sort included).
+        "ms": main_shape["kernel_ms"], "wrapper_ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
         "library_ms": no_library}, {
         "name": "ring_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/ring_sweep.cu",
         "replaces": "humid_tpu/parallel/pallas_ring.py:75",
         "launches": mesh_launches["ring"],
         "max_abs_err": max(ring_err, ring["max_abs_err"]),
-        "ms": ring["step_ms"], "plain_ms": ring["step_plain_ms"],
+        "ms": ring["step_kernel_ms"], "wrapper_ms": ring["step_ms"],
+        "plain_ms": ring["step_plain_ms"],
         "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
         "library_ms": no_library}]}))
     say(card)

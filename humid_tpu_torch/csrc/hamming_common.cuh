@@ -1,6 +1,24 @@
 // Device code shared by the Hamming kernels (hamming_sweep.cu,
-// ring_sweep.cu): the distance of two 2-bit packed words and the append
-// of one matching pair.
+// ring_sweep.cu): the bit-plane form of 2-bit packed words, the distance
+// of two words in that form, the inner loop that holds a thread's rows
+// against a chunk of columns in shared memory, and the block's buffer of
+// matching pairs.
+//
+// Bit planes.  A word arrives as W uint32 lanes of 16 bases, 2 bits a
+// base.  Counting differing bases on that form costs one POPC per lane
+// plus a shift, an OR and an AND to fold each 2-bit group onto one bit.
+// Of two neighbouring lanes A, B the planes
+//   lo = (A & 0x55555555) | ((B & 0x55555555) << 1)
+//   hi = ((A >> 1) & 0x55555555) | (B & 0xAAAAAAAA)
+// give every base one bit, at the same position in lo (low code bit) and
+// hi (high code bit).  Two words differ at a base iff
+// (lo_r ^ lo_c) | (hi_r ^ hi_c) has that bit set: one XOR, one LOP3 and
+// one POPC per 32 bases.  POPC runs at 16 a clock on an SM, a quarter
+// of the other integer operations' rate, so it is the unit to spare.  A
+// word takes PAIRS = ceil(W / 2) plane pairs, 2 * PAIRS plane words laid
+// out (lo0, hi0, lo1, hi1, ...); for odd W the last B is 0 in rows and
+// columns alike.  Rows are converted once per thread, columns once as a
+// block stages them: the table in device memory stays packed lanes.
 
 #pragma once
 
@@ -9,32 +27,173 @@
 
 namespace humid {
 
-// Number of differing bases of two W-lane words (16 bases per uint32 lane,
-// 2 bits per base): each 2-bit group of a ^ b contributes 1 iff non-zero.
+__host__ __device__ constexpr int plane_pairs(int w) { return (w + 1) / 2; }
+
+__device__ __forceinline__ void lanes_to_planes(uint32_t a, uint32_t b,
+                                                uint32_t& lo, uint32_t& hi) {
+  lo = (a & 0x55555555u) | ((b & 0x55555555u) << 1);
+  hi = ((a >> 1) & 0x55555555u) | (b & 0xAAAAAAAAu);
+}
+
+// Plane pair p of the W-lane word at `word`: (lo, hi) of lanes 2p, 2p+1.
 template <int W>
-__device__ __forceinline__ int word_distance(const uint32_t (&row)[W],
-                                             const uint32_t* col) {
+__device__ __forceinline__ void load_plane_pair(const uint32_t* word, int p,
+                                                uint32_t& lo, uint32_t& hi) {
+  const uint32_t a = word[2 * p];
+  const uint32_t b = 2 * p + 1 < W ? word[2 * p + 1] : 0u;
+  lanes_to_planes(a, b, lo, hi);
+}
+
+// Number of differing bases of two words in plane form.
+template <int PAIRS>
+__device__ __forceinline__ int plane_distance(const uint32_t* row,
+                                              const uint32_t* col) {
   int d = 0;
 #pragma unroll
-  for (int l = 0; l < W; ++l) {
-    const uint32_t z = row[l] ^ col[l];
-    d += __popc((z | (z >> 1)) & 0x55555555u);
-  }
+  for (int p = 0; p < PAIRS; ++p)
+    d += __popc((row[2 * p] ^ col[2 * p]) | (row[2 * p + 1] ^ col[2 * p + 1]));
   return d;
 }
 
-// Appends (a, b) to the pair buffer.  The counter keeps counting past
-// `cap`, so the caller learns the exact size a relaunch needs.
-__device__ __forceinline__ void append_pair(unsigned long long* counter,
-                                            long long cap, long long* out_a,
-                                            long long* out_b, long long a,
-                                            long long b) {
-  const unsigned long long slot = atomicAdd(counter, 1ULL);
-  if (slot < (unsigned long long)cap) {
-    out_a[slot] = a;
-    out_b[slot] = b;
+// Columns the inner loop takes per step: their plane words are fetched
+// with 16-byte shared-memory loads (a multiple of 4 words, at most 28)
+// and tested against all of a thread's rows before one branch.
+__host__ __device__ constexpr int group_cols(int plane_words) {
+  return plane_words == 2 ? 8
+         : plane_words == 4 ? 4
+         : (plane_words % 4 != 0 || plane_words == 8) ? 2
+                                                      : 1;
+}
+
+// Rows a thread keeps in registers and holds every column group against.
+// The kernels are written for any count; 1 measured fastest on the H100
+// at every shape (the loop is bound by POPC, which more rows per thread
+// do not spare, and the group that is gone over again after a hit grows
+// with them).  tools/sweep_tune.py overrides it to measure that again.
+#ifndef HUMID_SWEEP_ROWS
+#define HUMID_SWEEP_ROWS 1
+#endif
+constexpr int ROWS_PER_THREAD = HUMID_SWEEP_ROWS;
+
+// Stages columns [0, n) of `src` ([., W] packed lanes) as plane words in
+// `s_cols`, and zero words up to the next multiple of the group size, so
+// the inner loop never reads what no thread wrote.
+template <int W>
+__device__ __forceinline__ void stage_columns(uint32_t* s_cols,
+                                              const uint32_t* __restrict__ src,
+                                              int n) {
+  constexpr int PAIRS = plane_pairs(W), U = group_cols(2 * PAIRS);
+  const int n_pad = (n + U - 1) / U * U;
+  for (int k = threadIdx.x; k < n_pad * PAIRS; k += blockDim.x) {
+    const int c = k / PAIRS, p = k % PAIRS;
+    uint32_t lo = 0u, hi = 0u;
+    if (c < n) load_plane_pair<W>(src + (long long)c * W, p, lo, hi);
+    *reinterpret_cast<uint2*>(s_cols + 2 * k) = make_uint2(lo, hi);
   }
 }
+
+// Holds R rows (plane form, in registers) against the staged columns
+// [c_begin, c_end) of `s_cols` one pair at a time and calls emit(k, c)
+// for every row k and column c within max_dist.  The slow, exact loop:
+// for the few columns where a test has to follow every distance.
+template <int PAIRS, int R, class Emit>
+__device__ __forceinline__ void check_columns(
+    const uint32_t (&rows)[R][2 * PAIRS], const uint32_t* s_cols, int c_begin,
+    int c_end, int max_dist, Emit emit) {
+#pragma unroll 1
+  for (int c = c_begin; c < c_end; ++c)
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (plane_distance<PAIRS>(rows[k], s_cols + c * (2 * PAIRS)) <=
+          max_dist)
+        emit(k, c);
+}
+
+// The fast loop over the staged columns [c_begin, c_end): c_begin is a
+// multiple of the group size and the columns are staged up to the next
+// such multiple past c_end.  A group of columns is fetched with 16-byte
+// loads and held against all R rows with one branch for the group; only
+// a group in which some pair passed is gone over again by check_columns.
+// So emit sees the padding columns too and has to drop c >= c_end
+// itself, with whatever else decides a pair (validity, triangle, ids):
+// those tests run only for the few pairs that pass the distance test.
+template <int PAIRS, int R, class Emit>
+__device__ __forceinline__ void compare_columns(
+    const uint32_t (&rows)[R][2 * PAIRS], const uint32_t* s_cols, int c_begin,
+    int c_end, int max_dist, Emit emit) {
+  constexpr int PW = 2 * PAIRS, U = group_cols(PW), Q = U * PW / 4;
+  for (int c = c_begin; c < c_end; c += U) {
+    uint32_t g[U * PW];
+    const uint4* src = reinterpret_cast<const uint4*>(s_cols + c * PW);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const uint4 v = src[q];
+      g[4 * q] = v.x;
+      g[4 * q + 1] = v.y;
+      g[4 * q + 2] = v.z;
+      g[4 * q + 3] = v.w;
+    }
+    bool hit = false;
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        hit |= plane_distance<PAIRS>(rows[k], g + j * PW) <= max_dist;
+    if (hit) check_columns<PAIRS, R>(rows, s_cols, c, c + U, max_dist, emit);
+  }
+}
+
+// Matching pairs on their way out.  A pair (a, b), a < n and b < n, is
+// the one key a * n + b.  A global atomicAdd per match makes a warp wait
+// a memory round trip for each, and all of them queue on one address; so
+// a block collects its keys in shared memory (a shared-memory atomic) and
+// flush() hands them on with one global atomicAdd for the lot.  Keys that
+// find the block's buffer full go out one by one.  The global counter
+// keeps counting past `cap`, so the caller learns the exact size a
+// relaunch needs.
+constexpr int HIT_CAP = 1024;
+
+struct HitBuffer {
+  unsigned n;               // keys offered since the last flush
+  unsigned long long base;  // first global slot of the keys being flushed
+  long long keys[HIT_CAP];
+
+  // Thread 0 of a block, before the barrier that precedes the first add.
+  __device__ __forceinline__ void reset() { n = 0u; }
+
+  __device__ __forceinline__ void add(long long key,
+                                      unsigned long long* counter,
+                                      long long cap, long long* out_keys) {
+    // A full buffer is left alone (n only grows between flushes, so a
+    // stale read costs one atomic at most): when every pair matches, the
+    // block's threads must not queue on this one shared word as well.
+    unsigned i = HIT_CAP;
+    if (*(volatile unsigned*)&n < HIT_CAP) i = atomicAdd(&n, 1u);
+    if (i < HIT_CAP) {
+      keys[i] = key;
+    } else {
+      const unsigned long long slot = atomicAdd(counter, 1ULL);
+      if (slot < (unsigned long long)cap) out_keys[slot] = key;
+    }
+  }
+
+  // All threads of the block, between two phases of adds.  Starts with a
+  // barrier (every add of the phase is in) and, when it has written keys
+  // out, ends with one; the buffer is empty for adds that follow the
+  // caller's next barrier.
+  __device__ __forceinline__ void flush(unsigned long long* counter,
+                                        long long cap, long long* out_keys) {
+    __syncthreads();
+    const unsigned m = min(n, (unsigned)HIT_CAP);
+    if (m == 0u) return;  // uniform over the block
+    if (threadIdx.x == 0) base = atomicAdd(counter, (unsigned long long)m);
+    __syncthreads();
+    for (unsigned i = threadIdx.x; i < m; i += blockDim.x)
+      if (base + i < (unsigned long long)cap) out_keys[base + i] = keys[i];
+    __syncthreads();
+    if (threadIdx.x == 0) n = 0u;
+  }
+};
 
 }  // namespace humid
 

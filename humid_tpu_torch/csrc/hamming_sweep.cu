@@ -5,39 +5,57 @@
 // top-k column lists that an XLA epilogue compacts into pairs.  Here the
 // same pair set comes straight out of the kernel:
 //
-//   for every tile pair (ti, tj, on) of an i-major list with tj >= ti,
-//   every row r of tile ti and column c of tile tj with
-//     popcount over lanes of ((r ^ c) | ((r ^ c) >> 1)) & 0x55555555
-//       <= max_dist,
-//   both rows valid (index < n_rows and index % part_stride < part_valid),
-//   c > r when ti == tj (upper triangle of a diagonal tile pair),
-//   and, when a run-id vector is given, ids[r] == ids[c],
-//   is appended as (r, c) to a global int64 pair buffer.
+//   for every tile pair (ti, tj, on) of a list with 0 <= ti <= tj,
+//   every row r of tile ti and column c of tile tj with at most max_dist
+//   differing bases, both rows valid (index < n_rows and
+//   index % part_stride < part_valid), c > r when ti == tj (upper
+//   triangle of a diagonal tile pair), and, when a run-id vector is
+//   given, ids[r] == ids[c], is appended as the key r * n_rows + c to a
+//   global int64 buffer.  A tile pair with ti < 0 or tj < ti emits
+//   nothing and raises the flag in the second counter word.
 //
-// What bounds it on the card: integer ALU work.  Each pair and lane costs
-// XOR + SHIFT + OR + AND + POPC + ADD (POPC issues at a quarter of the
-// other integer ops' rate), and the column operand — about 8 bytes per
-// word at w = 2 — is re-read from shared memory for every row of the
-// tile.  Global memory traffic is small: a tile's words are read once
-// per row block.  Matches are sparse (dedup data), so the appends cost
-// little next to the compare.
+// What bounds it on the card: the POPC unit (16 a clock on an SM, a
+// quarter of the other integer operations' rate).  In the bit-plane form
+// of hamming_common.cuh a pair costs ceil(w / 2) POPC, with one XOR and
+// one LOP3 each, and one compare: at w = 2 one POPC and three integer
+// operations, so POPC (1/16 clock a pair) stays ahead of the integer unit
+// (3/64).  Memory traffic is nothing beside it: a column word is staged
+// once per 256 evaluations or more.  With no pair passing, the loop runs
+// at 14 of the 16 POPC a clock; what is lost beyond that goes to the
+// pairs that pass (the group gone over again, the appends) and, on small
+// inputs, to the last blocks finishing alone (PERF.md).
 //
-// What this simple design does about it: one thread per row keeps the
-// row's lanes in registers; a block of ROWS threads stages COLS column
-// words (and their validity flags) in shared memory, and every thread
-// reads the same column word at once, a broadcast without bank
-// conflicts.  The run-id mask (the pigeonhole engines compare only words
-// of one equal-key run) stages the column ids beside the validity flags;
-// it is a template parameter, so a sweep without ids pays nothing for
-// it.  Validity and the upper triangle are explicit masks, so the kernel
-// has no limit on max_dist (the TPU kernel zeroed the one-hot
-// features of padding words, which only works while max_dist < 16 * w),
-// and on a diagonal tile pair a block skips the column chunks that lie
-// wholly at or below its first row.  Each match takes one 64-bit
-// atomicAdd on a global counter; the counter keeps counting past the
-// buffer's capacity, so the caller can relaunch with the exact size.
-// The one-hot tensor-core formulation, warp-aggregated appends and TMA
-// staging are left for later work.
+// What the design does about it:
+// * Rows and columns are compared as bit planes; a thread converts its
+//   row once, a block converts the columns as it stages them.
+// * The inner loop (humid::compare_columns) fetches a group of columns
+//   with 16-byte shared-memory loads (all threads the same address: a
+//   broadcast) and tests the distance only, with one branch per group;
+//   validity of a ragged row, the triangle, the padded columns and the
+//   run ids are looked at for the few pairs that pass.  It is written for
+//   R rows per thread; R = 1 measured fastest (hamming_common.cuh).
+// * The work list is one grid dimension over (tile pair, row block,
+//   column span) units of nearly equal weight, so blocks finish together
+//   whatever the mix of diagonal and full tile pairs, and the number of
+//   tile pairs has no limit; the span is halved until the list has
+//   MIN_UNITS units.  A unit of a diagonal tile pair that lies wholly at
+//   or below the diagonal returns at once.  Inside a unit a warp skips
+//   the columns left of its first row and takes its own 32 * R columns,
+//   where every thread is at distance 0 from itself, through the exact
+//   loop (humid::check_columns): nothing of the lower triangle is
+//   compared in the fast loop.
+// * When part_stride is a multiple of the tile (every caller's case) the
+//   valid rows of a tile are a prefix, computed once per block; only
+//   valid columns are staged.  Any other stride stages every column
+//   below n_rows and tests the index of a passing pair instead.
+// * Matches go to the block's buffer in shared memory and from there to
+//   the global array with one atomicAdd per block and chunk
+//   (humid::HitBuffer): a global atomicAdd per match made every warp
+//   wait a memory round trip per match and cost a third of the time.
+//   The counter keeps counting past the buffer's capacity, so the caller
+//   can relaunch with the exact size.
+// The one-hot tensor-core form, TMA or cp.async staging and a persistent
+// grid are left for later work.
 //
 // The kernel allocates nothing and launches on the caller's stream.  The
 // C entry point returns cudaGetLastError() after the launch.
@@ -46,124 +64,185 @@
 
 namespace {
 
-constexpr int ROWS = 256;  // threads per block, one row each
-constexpr int COLS = 256;  // column words staged in shared memory per step
+constexpr int THREADS = 256;  // threads per block (fewer for a small tile)
+// The two sizes below measured best on the H100 (PERF.md); the macros
+// let tools/sweep_tune.py build other values beside them.
+#ifndef HUMID_SWEEP_COLS
+#define HUMID_SWEEP_COLS 256
+#endif
+#ifndef HUMID_SWEEP_MIN_UNITS
+#define HUMID_SWEEP_MIN_UNITS 2048
+#endif
+constexpr int COLS = HUMID_SWEEP_COLS;  // columns staged per step
+// The column span of a unit is halved while the list is shorter than this.
+constexpr int MIN_UNITS = HUMID_SWEEP_MIN_UNITS;
 
-__device__ __forceinline__ bool word_valid(long long g, long long n_rows,
-                                           long long part_stride,
-                                           long long part_valid) {
-  return g < n_rows && (g % part_stride) < part_valid;
+struct SweepArgs {
+  const uint32_t* lanes;
+  long long n_rows;
+  const int* ids;  // NULL: no run-id mask
+  const int* tile_pairs;
+  int tile;
+  int span;          // columns per unit, a multiple of COLS
+  int row_blocks;    // per tile
+  int spans;         // per tile
+  long long part_stride;
+  long long part_valid;
+  int prefix;        // part_stride % tile == 0: valid rows are a prefix
+  int max_dist;
+  long long* out_keys;
+  long long cap;
+  unsigned long long* counter;  // [0] matches, [1] bad-tile-pair flag
+};
+
+__device__ __forceinline__ bool word_valid(long long g, const SweepArgs& a) {
+  return g < a.n_rows && (g % a.part_stride) < a.part_valid;
 }
 
-template <int W, bool IDS>
-__global__ void __launch_bounds__(ROWS)
-hamming_sweep_kernel(const uint32_t* __restrict__ lanes, long long n_rows,
-                     const int* __restrict__ ids,
-                     const int* __restrict__ tile_pairs, int tile,
-                     long long part_stride, long long part_valid,
-                     int max_dist, long long* __restrict__ out_a,
-                     long long* __restrict__ out_b, long long cap,
-                     unsigned long long* __restrict__ counter) {
-  __shared__ uint32_t s_cols[COLS * W];
-  __shared__ unsigned char s_ok[COLS];
-  __shared__ int s_ids[IDS ? COLS : 1];
+// Rows of tile t to look at: the valid ones when they are a prefix, else
+// all below n_rows (their validity is then tested one by one).
+__device__ __forceinline__ int tile_rows(int t, const SweepArgs& a) {
+  const long long base = (long long)t * a.tile;
+  long long n = min((long long)a.tile, a.n_rows - base);
+  if (a.prefix) n = min(n, a.part_valid - base % a.part_stride);
+  return (int)max(n, 0LL);
+}
 
-  const int* p = tile_pairs + 3LL * blockIdx.y;
-  const int ti = p[0];
-  const int tj = p[1];
-  if (p[2] == 0) return;  // disabled tile pair: uniform over the block
+template <int W, int R>
+__global__ void __launch_bounds__(THREADS) hamming_sweep_kernel(SweepArgs a) {
+  constexpr int PAIRS = humid::plane_pairs(W), PW = 2 * PAIRS;
+  constexpr int U = humid::group_cols(PW);
+  __shared__ __align__(16) uint32_t s_cols[COLS * PW];
+  __shared__ humid::HitBuffer s_hits;
+
+  const int units = a.row_blocks * a.spans;
+  const int* p = a.tile_pairs + 3LL * (blockIdx.x / units);
+  const int ti = p[0], tj = p[1];
+  if (ti < 0 || tj < ti) {  // uniform over the block
+    if (threadIdx.x == 0) a.counter[1] = 1ULL;
+    return;
+  }
+  if (p[2] == 0) return;  // disabled tile pair
   const bool diag = ti == tj;
-
-  const int row0 = blockIdx.x * ROWS;  // first local row of this block
-  const int r_local = row0 + threadIdx.x;
-  const long long gr = (long long)ti * tile + r_local;
-  const bool row_ok =
-      r_local < tile && word_valid(gr, n_rows, part_stride, part_valid);
-  uint32_t row[W];
-#pragma unroll
-  for (int l = 0; l < W; ++l) row[l] = row_ok ? lanes[gr * W + l] : 0u;
-  int row_id = 0;
-  if constexpr (IDS) row_id = row_ok ? ids[gr] : 0;
-
-  const long long col_base = (long long)tj * tile;
+  const int unit = blockIdx.x % units;
+  const int row0 = (unit / a.spans) * (blockDim.x * R);
+  const int n_rows_t = tile_rows(ti, a);
+  const int span_end = min((unit % a.spans + 1) * a.span, tile_rows(tj, a));
+  int c_first = (unit % a.spans) * a.span;
   // On a diagonal tile pair no column at or below row0 can match.
-  const int c_begin = diag ? ((row0 + 1) / COLS) * COLS : 0;
-  for (int c0 = c_begin; c0 < tile; c0 += COLS) {
-    __syncthreads();  // the previous chunk has been consumed
-    for (int k = threadIdx.x; k < COLS * W; k += ROWS) {
-      const int c = k / W;
-      const long long gc = col_base + c0 + c;
-      s_cols[k] = (c0 + c < tile && gc < n_rows) ? lanes[gc * W + k % W]
-                                                 : 0u;
+  if (diag) c_first = max(c_first, (row0 + 1) / COLS * COLS);
+  if (row0 >= n_rows_t || c_first >= span_end) return;
+
+  const long long row_base = (long long)ti * a.tile;
+  const long long col_base = (long long)tj * a.tile;
+  const int r_first = row0 + threadIdx.x * R;  // this thread's first row
+  uint32_t rows[R][PW];
+  unsigned row_ok = 0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const long long gr = row_base + r_first + k;
+    const bool ok = r_first + k < n_rows_t && (a.prefix || word_valid(gr, a));
+    row_ok |= (unsigned)ok << k;
+#pragma unroll
+    for (int q = 0; q < PAIRS; ++q) {
+      rows[k][2 * q] = rows[k][2 * q + 1] = 0u;
+      if (ok)
+        humid::load_plane_pair<W>(a.lanes + gr * W, q, rows[k][2 * q],
+                                  rows[k][2 * q + 1]);
     }
-    for (int c = threadIdx.x; c < COLS; c += ROWS) {
-      s_ok[c] = c0 + c < tile &&
-                word_valid(col_base + c0 + c, n_rows, part_stride,
-                           part_valid);
-      if constexpr (IDS) s_ids[c] = s_ok[c] ? ids[col_base + c0 + c] : 0;
-    }
+  }
+  const bool warp_has_rows = __any_sync(0xffffffffu, row_ok != 0);
+  const int warp_r_first = row0 + (threadIdx.x & ~31) * R;
+
+  if (threadIdx.x == 0) s_hits.reset();
+  for (int c0 = c_first; c0 < span_end; c0 += COLS) {
+    const int c_cnt = min(COLS, span_end - c0);
+    humid::stage_columns<W>(s_cols, a.lanes + (col_base + c0) * W, c_cnt);
     __syncthreads();
-    if (!row_ok) continue;
-    const int c_end = min(COLS, tile - c0);
-    for (int c = 0; c < c_end; ++c) {
-      const int d = humid::word_distance<W>(row, s_cols + c * W);
-      if (d <= max_dist && s_ok[c] && (!diag || c0 + c > r_local) &&
-          (!IDS || s_ids[c] == row_id)) {
-        humid::append_pair(counter, cap, out_a, out_b, gr,
-                           col_base + c0 + c);
+    if (warp_has_rows) {
+      const auto emit = [&](int k, int c) {
+        const int cl = c0 + c;
+        if (c >= c_cnt || !(row_ok >> k & 1u) || (diag && cl <= r_first + k))
+          return;
+        const long long gr = row_base + r_first + k, gc = col_base + cl;
+        if (!a.prefix && !word_valid(gc, a)) return;
+        if (a.ids != nullptr && a.ids[gr] != a.ids[gc]) return;
+        s_hits.add(gr * a.n_rows + gc, a.counter, a.cap, a.out_keys);
+      };
+      int c_begin = 0;
+      if (diag) {
+        // Columns left of the warp's first row pair with none of its
+        // rows; the next 32 * R, its own, with some: every thread is at
+        // distance 0 from itself there, so they take the exact loop.
+        const int own = min(max(warp_r_first + 1 - c0, 0), c_cnt);
+        const int right = min(max(warp_r_first + 32 * R - c0, 0), c_cnt);
+        humid::check_columns<PAIRS, R>(rows, s_cols, own, right, a.max_dist,
+                                       emit);
+        c_begin = (right + U - 1) / U * U;
       }
+      humid::compare_columns<PAIRS, R>(rows, s_cols, c_begin, c_cnt,
+                                       a.max_dist, emit);
     }
+    // Also the barrier after which s_cols may be staged again.
+    s_hits.flush(a.counter, a.cap, a.out_keys);
   }
 }
 
 template <int W>
-cudaError_t launch(const uint32_t* lanes, long long n_rows, const int* ids,
-                   const int* tile_pairs, long long nb, int tile,
-                   long long part_stride, long long part_valid, int max_dist,
-                   long long* out_a, long long* out_b, long long cap,
-                   unsigned long long* counter, cudaStream_t stream) {
-  const dim3 grid((tile + ROWS - 1) / ROWS, (unsigned)nb);
-  if (ids != nullptr) {
-    hamming_sweep_kernel<W, true><<<grid, ROWS, 0, stream>>>(
-        lanes, n_rows, ids, tile_pairs, tile, part_stride, part_valid,
-        max_dist, out_a, out_b, cap, counter);
-  } else {
-    hamming_sweep_kernel<W, false><<<grid, ROWS, 0, stream>>>(
-        lanes, n_rows, ids, tile_pairs, tile, part_stride, part_valid,
-        max_dist, out_a, out_b, cap, counter);
-  }
+cudaError_t launch(SweepArgs a, long long nb, cudaStream_t stream) {
+  constexpr int R = humid::ROWS_PER_THREAD;
+  // A tile below THREADS * R rows gets a smaller block, not idle warps.
+  const int threads = min(THREADS, ((a.tile + R - 1) / R + 31) / 32 * 32);
+  a.row_blocks = (a.tile + threads * R - 1) / (threads * R);
+  // Halve the column span until the list has MIN_UNITS units (or a span
+  // is one staged chunk): small lists still fill the card.
+  a.span = (a.tile + COLS - 1) / COLS * COLS;
+  while (a.span > COLS &&
+         nb * a.row_blocks * ((a.tile + a.span - 1) / a.span) < MIN_UNITS)
+    a.span = (a.span / 2 + COLS - 1) / COLS * COLS;
+  a.spans = (a.tile + a.span - 1) / a.span;
+  const long long blocks = nb * a.row_blocks * a.spans;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  hamming_sweep_kernel<W, R><<<(unsigned)blocks, threads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Appends every matching (row, col) of the nb tile pairs to out_a/out_b
-// (the first `cap` of them) and adds the number of matches to *counter.
-// lanes: [n_rows, w] uint32; ids: [n_rows] int32 run ids or NULL (no
-// mask); tile_pairs: [nb, 3] int32 (ti, tj, on).
+// Appends the key a * n_rows + b of every matching (row a, col b) of the
+// nb tile pairs to out_keys (the first `cap` of them), adds the number of
+// matches to counter[0] and sets counter[1] if a tile pair is out of
+// order or negative.  lanes: [n_rows, w] uint32; ids: [n_rows] int32 run
+// ids or NULL (no mask); tile_pairs: [nb, 3] int32 (ti, tj, on);
+// counter: 2 uint64.
 extern "C" int humid_hamming_sweep(const void* lanes, long long n_rows,
                                    int w, const void* ids,
-                                   const void* tile_pairs,
-                                   long long nb, int tile,
-                                   long long part_stride,
+                                   const void* tile_pairs, long long nb,
+                                   int tile, long long part_stride,
                                    long long part_valid, int max_dist,
-                                   void* out_a, void* out_b, long long cap,
+                                   void* out_keys, long long cap,
                                    void* counter, void* stream) {
   if (nb == 0) return (int)cudaSuccess;
-  if (nb > 65535 || tile <= 0 || part_stride <= 0)
+  if (nb < 0 || tile <= 0 || part_stride <= 0 || n_rows >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const uint32_t* l = static_cast<const uint32_t*>(lanes);
-  const int* id = static_cast<const int*>(ids);
-  const int* tp = static_cast<const int*>(tile_pairs);
-  long long* a = static_cast<long long*>(out_a);
-  long long* b = static_cast<long long*>(out_b);
-  unsigned long long* cnt = static_cast<unsigned long long*>(counter);
+  SweepArgs a{};
+  a.lanes = static_cast<const uint32_t*>(lanes);
+  a.n_rows = n_rows;
+  a.ids = static_cast<const int*>(ids);
+  a.tile_pairs = static_cast<const int*>(tile_pairs);
+  a.tile = tile;
+  a.part_stride = part_stride;
+  a.part_valid = part_valid;
+  a.prefix = part_stride % tile == 0;
+  a.max_dist = max_dist;
+  a.out_keys = static_cast<long long*>(out_keys);
+  a.cap = cap;
+  a.counter = static_cast<unsigned long long*>(counter);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (w) {
-#define HUMID_SWEEP_CASE(W_)                                                \
-  case W_:                                                                  \
-    return (int)launch<W_>(l, n_rows, id, tp, nb, tile, part_stride,        \
-                           part_valid, max_dist, a, b, cap, cnt, s);
+#define HUMID_SWEEP_CASE(W_) \
+  case W_:                   \
+    return (int)launch<W_>(a, nb, s);
     HUMID_FOR_EACH_W(HUMID_SWEEP_CASE)
 #undef HUMID_SWEEP_CASE
     default:

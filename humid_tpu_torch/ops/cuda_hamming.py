@@ -13,8 +13,9 @@ Contract of :func:`hamming_tile_pairs` and :func:`hamming_tile_pairs_plain`:
   words (``torch.from_numpy(packed.view(np.int32))``): 16 bases per lane,
   base p at bits 2*(15-p).
 * ``tile_pairs`` — [nb, 3] int32 tensor of (ti, tj, on) on the same
-  device, i-major, tj >= ti.  Tile ti covers rows [ti*tile, (ti+1)*tile).
-  Tile pairs with on == 0 emit nothing.
+  device, 0 <= ti <= tj (anything else raises ``ValueError``).  Tile ti
+  covers rows [ti*tile, (ti+1)*tile).  Tile pairs with on == 0 emit
+  nothing.
 * A row index g is valid when g < N and g % part_stride < part_valid.
 * ``ids`` — optional [N] int32 run ids on the same device: with it a pair
   is emitted only when ids[a] == ids[b] (the run-id mask of the
@@ -26,6 +27,12 @@ Contract of :func:`hamming_tile_pairs` and :func:`hamming_tile_pairs_plain`:
 
 On a CUDA tensor :func:`hamming_tile_pairs` launches the kernel or raises;
 on a CPU tensor, and only there, it runs the plain version in its place.
+
+The kernel writes one int64 key ``a * N + b`` per match, so the sort runs
+on what the kernel wrote, and it tests the tile pairs itself: a launch
+costs the host one read (:func:`_read_back`: the match count, which
+decides a relaunch, and the bad-tile-pair flag, together) and no other
+synchronisation.
 """
 
 from __future__ import annotations
@@ -42,11 +49,12 @@ from .hamming import lanes_u32, mismatch_counts
 LAUNCHES = 0
 
 #: Tile pairs per launch.  Bounds one launch's match count, and so its
-#: buffer, while giving the card thousands of blocks at tile 2048.
-CHUNK_PAIRS = 1024
+#: buffer (the kernel itself takes any number: its work list is one grid
+#: dimension).
+CHUNK_PAIRS = 4096
 #: First pair-buffer capacity of a launch (pairs); a launch whose counter
 #: exceeds it is relaunched once with the exact count.
-CAP_START = 1 << 22
+CAP_START = 1 << 23
 #: Largest buffer one launch may take; a chunk with more matches than this
 #: is split in two instead.
 MAX_CAP = 1 << 27
@@ -85,16 +93,21 @@ def _check(lanes: torch.Tensor, tile_pairs: torch.Tensor, tile: int,
                          f"part_valid={part_valid} max_dist={max_dist}")
     if lanes.shape[0] >= 1 << 31:
         raise ValueError(f"{lanes.shape[0]} rows: pair keys need N < 2^31")
-    if len(tile_pairs) and bool(
-            ((tile_pairs[:, 1] < tile_pairs[:, 0])
-             | (tile_pairs[:, 0] < 0)).any()):
-        raise ValueError("tile_pairs must have 0 <= ti <= tj")
+
+
+_BAD_TILE_PAIR = "tile_pairs must have 0 <= ti <= tj"
+
+
+def _sorted_keys(keys: torch.Tensor, n_rows: int):
+    """int64 keys a * n_rows + b -> (a, b) sorted by (a, b)."""
+    key = torch.sort(keys).values
+    a = key // n_rows
+    return a, key - a * n_rows
 
 
 def _sorted_pairs(a: torch.Tensor, b: torch.Tensor, n_rows: int):
     """Sort (a, b) lexicographically through one int64 key."""
-    key = torch.sort(a * n_rows + b).values
-    return key // n_rows, key % n_rows
+    return _sorted_keys(a * n_rows + b, n_rows)
 
 
 def hamming_tile_pairs_plain(lanes: torch.Tensor, tile_pairs: torch.Tensor,
@@ -109,6 +122,8 @@ def hamming_tile_pairs_plain(lanes: torch.Tensor, tile_pairs: torch.Tensor,
     vals = lanes_u32(lanes)
     outs_a, outs_b = [], []
     for ti, tj, on in tile_pairs.tolist():
+        if ti < 0 or tj < ti:
+            raise ValueError(_BAD_TILE_PAIR)
         r0, c0 = ti * tile, tj * tile
         if not on or r0 >= n_rows or c0 >= n_rows:
             continue
@@ -137,59 +152,75 @@ def _kernel_fn():
 
     fn = _build.load("hamming_sweep").humid_hamming_sweep
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, i64, i32, p, p, i64, i32, i64, i64, i32, p, p, i64, p,
-                   p]
+    fn.argtypes = [p, i64, i32, p, p, i64, i32, i64, i64, i32, p, i64, p, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _sweep(lanes, pairs, cap, *, tile, part_stride, part_valid, max_dist,
-           ids=None):
-    """One pass over ``pairs`` into fresh [cap] buffers -> (out_a, out_b,
-    true match count).  The kernel on CUDA tensors; on CPU tensors the
-    plain version fills the buffers the way the kernel would."""
+def _launch(lanes, pairs, keys, counter, *, tile, part_stride, part_valid,
+            max_dist, ids=None) -> None:
+    """Enqueue the kernel over ``pairs`` on the current stream: matching
+    keys go to ``keys`` (as many as it holds), their number is added to
+    ``counter[0]``, and ``counter[1]`` is set if a tile pair is negative
+    or out of order.  No host synchronisation."""
     global LAUNCHES
-    dev = lanes.device
-    out_a = torch.empty(cap, dtype=torch.int64, device=dev)
-    out_b = torch.empty(cap, dtype=torch.int64, device=dev)
-    if dev.type == "cpu":
-        a, b = hamming_tile_pairs_plain(
-            lanes, pairs, tile=tile, part_stride=part_stride,
-            part_valid=part_valid, max_dist=max_dist, ids=ids)
-        k = min(cap, len(a))
-        out_a[:k] = a[:k]
-        out_b[:k] = b[:k]
-        return out_a, out_b, len(a)
     if lanes.shape[1] > MAX_LANES:
         raise ValueError(f"the CUDA sweep takes at most {MAX_LANES} lanes "
                          f"(256-base words), got {lanes.shape[1]}")
-    counter = torch.zeros(1, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(lanes.device):
         err = _kernel_fn()(
             lanes.data_ptr(), lanes.shape[0], lanes.shape[1],
-            None if ids is None else ids.data_ptr(), pairs.data_ptr(), len(pairs), tile, part_stride, part_valid,
-            max_dist, out_a.data_ptr(), out_b.data_ptr(), cap,
-            counter.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            None if ids is None else ids.data_ptr(), pairs.data_ptr(),
+            len(pairs), tile, part_stride, part_valid, max_dist,
+            keys.data_ptr(), len(keys), counter.data_ptr(),
+            torch.cuda.current_stream(lanes.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hamming_sweep launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return out_a, out_b, int(counter.item())
+
+
+def _read_back(counter: torch.Tensor) -> list[int]:
+    """The one host read of a launch: the counter words through pinned
+    memory, after the current stream has drained."""
+    host = torch.empty(counter.shape, dtype=counter.dtype, pin_memory=True)
+    host.copy_(counter, non_blocking=True)
+    torch.cuda.current_stream(counter.device).synchronize()
+    return host.tolist()
+
+
+def _sweep(lanes, pairs, cap, **kw):
+    """One pass over ``pairs`` into a fresh [cap] key buffer -> (keys, true
+    match count).  The kernel on CUDA tensors; on CPU tensors the plain
+    version fills the buffer the way the kernel would."""
+    dev = lanes.device
+    keys = torch.empty(cap, dtype=torch.int64, device=dev)
+    if dev.type == "cpu":
+        a, b = hamming_tile_pairs_plain(lanes, pairs, **kw)
+        k = min(cap, len(a))
+        keys[:k] = a[:k] * lanes.shape[0] + b[:k]
+        return keys, len(a)
+    counter = torch.zeros(2, dtype=torch.int64, device=dev)
+    _launch(lanes, pairs, keys, counter, **kw)
+    n, bad = _read_back(counter)
+    if bad:
+        raise ValueError(_BAD_TILE_PAIR)
+    return keys, n
 
 
 def _sweep_chunk(lanes, pairs, outs, **kw) -> None:
-    """Sweep one chunk of tile pairs, appending its (a, b) to ``outs``:
+    """Sweep one chunk of tile pairs, appending its keys to ``outs``:
     relaunch once with the exact capacity when the buffer overflowed, or
     split the chunk when that capacity would exceed MAX_CAP."""
     cap = min(CAP_START, len(pairs) * kw["tile"] ** 2)
-    a, b, n = _sweep(lanes, pairs, cap, **kw)
+    keys, n = _sweep(lanes, pairs, cap, **kw)
     if n > cap:
         if n > MAX_CAP and len(pairs) > 1:
             half = len(pairs) // 2
             _sweep_chunk(lanes, pairs[:half], outs, **kw)
             _sweep_chunk(lanes, pairs[half:], outs, **kw)
             return
-        a, b, n = _sweep(lanes, pairs, n, **kw)
-    outs.append((a[:n], b[:n]))
+        keys, n = _sweep(lanes, pairs, n, **kw)
+    outs.append(keys[:n])
 
 
 def hamming_tile_pairs(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
@@ -208,5 +239,5 @@ def hamming_tile_pairs(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
     if not outs:
         empty = torch.zeros(0, dtype=torch.int64, device=lanes.device)
         return empty, empty.clone()
-    return _sorted_pairs(torch.cat([a for a, _ in outs]),
-                         torch.cat([b for _, b in outs]), lanes.shape[0])
+    return _sorted_keys(outs[0] if len(outs) == 1 else torch.cat(outs),
+                        lanes.shape[0])

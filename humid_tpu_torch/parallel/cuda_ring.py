@@ -44,7 +44,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..ops.cuda_hamming import MAX_LANES, _sorted_pairs
+from ..ops.cuda_hamming import MAX_LANES, _sorted_keys, _sorted_pairs
 from ..ops.hamming import lanes_u32, mismatch_counts
 from .mesh import data_mesh, pad_to_shards
 
@@ -155,22 +155,21 @@ def _kernel_fn():
 
     fn = _build.load("ring_sweep").humid_ring_sweep
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, p, i64, i32, i64, i64, i64, i32, i32, p, p, i64, p, p]
+    fn.argtypes = [p, p, i64, i32, i64, i64, i64, i32, i32, p, i64, p, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @dataclass
 class _PairBuffer:
-    """One shard's pair buffer and its 64-bit counter."""
-    out_a: torch.Tensor
-    out_b: torch.Tensor
+    """One shard's pair buffer (one int64 key a * u + b per pair) and its
+    64-bit counter."""
+    keys: torch.Tensor
     counter: torch.Tensor
 
     @classmethod
     def new(cls, cap: int, dev: torch.device) -> "_PairBuffer":
         return cls(torch.empty(cap, dtype=torch.int64, device=dev),
-                   torch.empty(cap, dtype=torch.int64, device=dev),
                    torch.zeros(1, dtype=torch.int64, device=dev))
 
 
@@ -185,15 +184,14 @@ def _step(rows, cols, buf: _PairBuffer, *, row_base, col_base, u, max_dist,
     b, w = rows.shape
     if not (_valid(row_base, u, b) and _valid(col_base, u, b)):
         return
-    cap = len(buf.out_a)
+    cap = len(buf.keys)
     if dev.type == "cpu":
         a, bb = ring_block_pairs_plain(
             rows, cols, row_base=row_base, col_base=col_base, u=u,
             max_dist=max_dist, upper_only=upper_only)
         n0 = int(buf.counter[0])
         k = max(0, min(cap - n0, len(a)))
-        buf.out_a[n0:n0 + k] = a[:k]
-        buf.out_b[n0:n0 + k] = bb[:k]
+        buf.keys[n0:n0 + k] = a[:k] * u + bb[:k]
         buf.counter += len(a)
         return
     if w > MAX_LANES:
@@ -202,8 +200,8 @@ def _step(rows, cols, buf: _PairBuffer, *, row_base, col_base, u, max_dist,
     with torch.cuda.device(dev):
         err = _kernel_fn()(
             rows.data_ptr(), cols.data_ptr(), b, w, row_base, col_base, u,
-            max_dist, int(upper_only), buf.out_a.data_ptr(),
-            buf.out_b.data_ptr(), cap, buf.counter.data_ptr(),
+            max_dist, int(upper_only), buf.keys.data_ptr(), cap,
+            buf.counter.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_sweep launch failed: CUDA error {err}")
@@ -230,10 +228,10 @@ def ring_block_pairs(rows: torch.Tensor, cols: torch.Tensor, *,
     buf = _PairBuffer.new(min(CAP_START, rows.shape[0] ** 2), rows.device)
     _step(rows, cols, buf, **kw)
     n = int(buf.counter.item())
-    if n > len(buf.out_a):
+    if n > len(buf.keys):
         buf = _PairBuffer.new(n, rows.device)
         _step(rows, cols, buf, **kw)
-    return _sorted_pairs(buf.out_a[:n], buf.out_b[:n], max(u, 1))
+    return _sorted_keys(buf.keys[:n], max(u, 1))
 
 
 @dataclass
@@ -364,10 +362,10 @@ def sharded_neighbor_pairs_ring(
         if emits:
             _compute(shards[me], s, **step_kw(me, q, upper_only))
 
-    parts_a, parts_b = [], []
+    parts = []
     for me, sh in enumerate(shards):
         n = _count(sh)
-        if n > len(sh.buf.out_a):
+        if n > len(sh.buf.keys):
             # Exact-capacity rerun of this shard's steps on the slots it
             # still holds, on the device's current stream.
             sh.buf = _PairBuffer.new(n, sh.dev)
@@ -375,10 +373,8 @@ def sharded_neighbor_pairs_ring(
                 if me2 == me and emits:
                     _step(sh.slots[0], sh.slots[s], sh.buf,
                           **step_kw(me, q, upper_only))
-        parts_a.append(sh.buf.out_a[:n].cpu().numpy())
-        parts_b.append(sh.buf.out_b[:n].cpu().numpy())
-    # Shards emit disjoint pair sets in the order of their atomics; one
-    # key sort on the host merges them into the (a, b) order.
-    key = np.sort(np.concatenate(parts_a) * np.int64(d * b)
-                  + np.concatenate(parts_b))
-    return key // (d * b), key % (d * b)
+        parts.append(sh.buf.keys[:n].cpu().numpy())
+    # Shards emit disjoint sets of keys a * u + b in the order of their
+    # atomics; one sort on the host merges them into the (a, b) order.
+    key = np.sort(np.concatenate(parts))
+    return key // u, key % u

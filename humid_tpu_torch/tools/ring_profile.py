@@ -30,13 +30,18 @@ from ..ops import unique_words
 from ..parallel import data_mesh, sharded_neighbor_pairs_ring
 
 
-def sample_table(n_reads: int, length: int = 24, seed: int = 0):
+def sample_table(n_reads: int, length: int = 24, seed: int = 0,
+                 n_subst: int = 1):
+    """Unique word table of an ``n_reads`` sample: the pool words plus one
+    copy with ``n_subst`` substitutions per read whose mutation falls
+    inside the word."""
     rng = np.random.default_rng(seed)
     pool = rng.integers(0, 4, size=(n_reads // 8, length), dtype=np.uint8)
     n_mut = int(n_reads * 0.3 * length / 100)
     mut = pool[rng.integers(0, len(pool), n_mut)].copy()
-    mut[np.arange(n_mut), rng.integers(0, length, n_mut)] = rng.integers(
-        0, 4, n_mut, dtype=np.uint8)
+    for _ in range(n_subst):
+        mut[np.arange(n_mut), rng.integers(0, length, n_mut)] = rng.integers(
+            0, 4, n_mut, dtype=np.uint8)
     return unique_words(W.pack_words(np.concatenate([pool, mut])),
                         want_inverse=False)[0]
 

@@ -86,6 +86,119 @@ def test_kernel_matches_plain(length, cuda_device):
     assert K.LAUNCHES == launches + 2
 
 
+@pytest.mark.parametrize("tile", [256, 512, 2048])
+@pytest.mark.parametrize("length", [14, 24, 40, 72, 256])  # w = 1, 2, 3, 5, 16
+def test_kernel_matches_plain_by_width_and_tile(length, tile, cuda_device):
+    """Kernel == plain for odd and even lane counts (an odd count leaves
+    the last bit-plane word half empty) at the tiles in use: 256 and 512
+    are smaller than a full block of threads, 2048 takes several row
+    blocks and column spans.  Two partitions with padding between them."""
+    rng = np.random.default_rng(500 + length + tile)
+    rows = _words(rng, 8192, length, pool=400)
+    rows[3900:4096] = 0
+    rows[7996:] = 0
+    lanes, tp = _tensors(rows, _upper_pairs(8192 // tile)[::3], cuda_device)
+    kw = dict(tile=tile, part_stride=4096, part_valid=3900, max_dist=2)
+    pa, pb = K.hamming_tile_pairs_plain(lanes, tp, **kw)
+    assert len(pa) > 0 and int((pb % 4096).max()) < 3900
+    a, b = K.hamming_tile_pairs(lanes, tp, **kw)
+    assert torch.equal(a, pa) and torch.equal(b, pb)
+
+
+@pytest.mark.parametrize("stride,valid", [(1300, 1100), (700, 256)])
+def test_kernel_stride_not_a_multiple_of_the_tile(stride, valid,
+                                                  cuda_device):
+    """A part_stride that the tile does not divide: the valid rows of a
+    tile are no prefix, and the kernel tests the index of every pair that
+    passes the distance test."""
+    rng = np.random.default_rng(stride)
+    rows = _words(rng, 4000, 24, pool=100)
+    rows[rng.random(4000) < 0.2] = 0  # zero words among the real ones
+    lanes, tp = _tensors(rows, _upper_pairs(8), cuda_device)
+    kw = dict(tile=512, part_stride=stride, part_valid=valid, max_dist=2)
+    pa, pb = K.hamming_tile_pairs_plain(lanes, tp, **kw)
+    assert len(pa) > 0
+    for _ in range(2):
+        a, b = K.hamming_tile_pairs(lanes, tp, **kw)
+        assert torch.equal(a, pa) and torch.equal(b, pb)
+
+
+def test_kernel_takes_more_than_65535_tile_pairs(cuda_device, monkeypatch):
+    """67,896 tile pairs of 256 rows in one launch (the work list is one
+    grid dimension) == the plain version over the same table at tile
+    2048 (1,081 tile pairs): both cover every unordered pair once."""
+    rng = np.random.default_rng(65)
+    n = 46 * 2048
+    rows = _words(rng, n, 16, pool=3000)
+    kw = dict(part_stride=n, part_valid=n, max_dist=1)
+    lanes, tp = _tensors(rows, _upper_pairs(n // 2048), cuda_device)
+    pa, pb = K.hamming_tile_pairs_plain(lanes, tp, tile=2048, **kw)
+    lanes, tp = _tensors(rows, _upper_pairs(n // 256), cuda_device)
+    assert len(tp) > 65535 and len(pa) > 0
+    monkeypatch.setattr(K, "CHUNK_PAIRS", 1 << 17)
+    monkeypatch.setattr(K, "CAP_START", max(K.CAP_START, len(pa)))
+    launches = K.LAUNCHES
+    a, b = K.hamming_tile_pairs(lanes, tp, tile=256, **kw)
+    assert K.LAUNCHES == launches + 1
+    assert torch.equal(a, pa) and torch.equal(b, pb)
+
+
+@pytest.mark.parametrize("bad", [(1, 0), (-1, 0)])
+def test_kernel_flags_a_bad_tile_pair(bad, cuda_device):
+    """tj < ti or a negative tile: the kernel raises its flag and the
+    wrapper raises ValueError after its one read-back, also when the pair
+    is disabled; the plain version raises too."""
+    rows = _words(np.random.default_rng(9), 1024, 24)
+    lanes, tp = _tensors(rows, np.array([(0, 0), bad, (0, 1)]), cuda_device,
+                         on=np.array([1, 0, 1], np.int32))
+    kw = dict(tile=512, part_stride=1024, part_valid=1024, max_dist=1)
+    launches = K.LAUNCHES
+    with pytest.raises(ValueError, match="0 <= ti <= tj"):
+        K.hamming_tile_pairs(lanes, tp, **kw)
+    assert K.LAUNCHES == launches + 1  # found by the kernel, not before it
+    with pytest.raises(ValueError, match="0 <= ti <= tj"):
+        K.hamming_tile_pairs_plain(lanes, tp, **kw)
+
+
+@pytest.mark.parametrize("cap_start", [1 << 23, 8])
+def test_kernel_one_read_back_per_launch(cap_start, cuda_device,
+                                         monkeypatch):
+    """hamming_tile_pairs reads the device once per launch (the counter
+    words, through _read_back) and synchronises nowhere else: every other
+    synchronising call raises under the sync debug mode.  With a tiny
+    first buffer every chunk is launched twice."""
+    rng = np.random.default_rng(12)
+    rows = _words(rng, 4096, 24, pool=40)
+    lanes, tp = _tensors(rows, _upper_pairs(8), cuda_device)
+    kw = dict(tile=512, part_stride=4096, part_valid=4096, max_dist=1)
+    pa, pb = K.hamming_tile_pairs_plain(lanes, tp, **kw)
+    K.hamming_tile_pairs(lanes, tp, **kw)  # build and load the kernel
+    reads = []
+    real = K._read_back
+
+    def counting(counter):  # the one place that may wait for the device
+        reads.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(counter)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(K, "_read_back", counting)
+    monkeypatch.setattr(K, "CAP_START", cap_start)
+    monkeypatch.setattr(K, "CHUNK_PAIRS", 16)
+    launches = K.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, b = K.hamming_tile_pairs(lanes, tp, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(a, pa) and torch.equal(b, pb)
+    n_chunks = -(-len(tp) // 16)
+    assert K.LAUNCHES - launches == len(reads)
+    assert len(reads) == (n_chunks if cap_start > 8 else 2 * n_chunks)
+
+
 def test_kernel_capacity_retry_and_split(cuda_device, monkeypatch):
     rng = np.random.default_rng(7)
     rows = _words(rng, 4096, 24, pool=20)
@@ -145,9 +258,9 @@ def _ring_lanes(rng, n, length, device, pool=200):
 
 
 @pytest.mark.parametrize("upper_only", [True, False])
-@pytest.mark.parametrize("length", [14, 24, 40])
+@pytest.mark.parametrize("length", [14, 24, 40, 72])
 def test_ring_kernel_matches_plain(length, upper_only, cuda_device):
-    """Ring kernel == plain on the card for w = 1, 2, 3, twice, with u
+    """Ring kernel == plain on the card for w = 1, 2, 3, 5, twice, with u
     inside the column block (and, on the upper_only step, inside the row
     block too) and a block that is no multiple of any tile."""
     rng = np.random.default_rng(300 + length)

@@ -18,7 +18,8 @@ from humid_tpu.ops import neighbors as JN
 from humid_tpu.ops.hamming import hamming_block_xor
 from humid_tpu_torch import words as W
 from humid_tpu_torch.ops import cuda_hamming as K
-from humid_tpu_torch.ops.hamming import lanes_u32, mismatch_counts
+from humid_tpu_torch.ops.hamming import (lanes_u32, mismatch_counts,
+                                         mismatch_counts_planes, planes)
 
 
 def _words(rng, n, length, pool=30):
@@ -192,3 +193,96 @@ def test_mismatch_counts_match_numpy():
     got = mismatch_counts(lanes_u32(torch.from_numpy(a.view(np.int32))),
                           lanes_u32(torch.from_numpy(b.view(np.int32))))
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _plane_inputs(rng, w):
+    """[60, w] uint32 words that stress the plane transform: random lanes
+    (bit 31 set in many), all-T words, zero padding rows, and copies of
+    one word that differ from it only in the last base of the last lane
+    (for odd w the lane whose partner in the plane pair is empty)."""
+    x = rng.integers(0, 2**32, (60, w), dtype=np.uint64).astype(np.uint32)
+    x[10:14] = 0xFFFFFFFF
+    x[14:20] = 0
+    for k, code in enumerate((1, 2, 3)):
+        x[21 + k] = x[20]
+        x[21 + k, w - 1] ^= np.uint32(code)
+    return x
+
+
+@pytest.mark.parametrize("w", range(1, 17))
+def test_planes_match_mismatch_counts(w):
+    """The bit-plane statement of the metric (one popcount per 32 bases,
+    what the CUDA kernels compute) == the lane statement, for every lane
+    count the kernels are built for; int32 bit views give the same planes
+    as the unsigned values."""
+    x = _plane_inputs(np.random.default_rng(900 + w), w)
+    signed = torch.from_numpy(x.view(np.int32))
+    vals = lanes_u32(signed)
+    want = mismatch_counts(vals, vals)
+    assert torch.equal(mismatch_counts_planes(vals, vals), want)
+    assert torch.equal(mismatch_counts_planes(signed, signed), want)
+    assert want[20, 21:24].tolist() == [1, 1, 1] and int(want[10, 11]) == 0
+    pl = planes(signed)
+    assert pl.shape == (60, 2 * ((w + 1) // 2))
+    assert int(pl.min()) >= 0 and int(pl.max()) < 2**32
+    assert not pl[14:20].any()
+    if w % 2:  # the empty partner lane leaves the odd bit positions clear
+        assert not (pl[:, -2:] & 0xAAAAAAAA).any()
+    # Every base owns one bit: the planes hold exactly the lanes' bits.
+    bits = np.bitwise_count(x).sum(axis=1)
+    plane_bits = np.bitwise_count(pl.numpy().astype(np.uint64)).sum(axis=1)
+    np.testing.assert_array_equal(plane_bits, bits)
+
+
+@pytest.mark.parametrize("length", [14, 24, 40])
+def test_planes_match_block_xor(length):
+    """mismatch_counts_planes thresholded over the upper triangle == the
+    JAX package's XOR block oracle (integers: tolerance 0)."""
+    rng = np.random.default_rng(17 + length)
+    rows = _words(rng, 500, length)
+    r_idx, c_idx, count = hamming_block_xor(
+        jnp.asarray(rows), jnp.asarray(rows), 0, 0, 2, cap=1 << 16)
+    count = int(count)
+    ref = np.stack([np.asarray(r_idx)[:count], np.asarray(c_idx)[:count]])
+    ref = ref[:, np.lexsort((ref[1], ref[0]))]
+    lanes = torch.from_numpy(rows.view(np.int32))
+    d = mismatch_counts_planes(lanes, lanes).numpy()
+    a, b = np.nonzero(np.triu(d <= 2, k=1))
+    assert count > 0
+    np.testing.assert_array_equal(np.stack([a, b]), ref)
+
+
+@pytest.mark.parametrize("bad", [(1, 0), (-1, 0), (-2, -1)])
+@pytest.mark.parametrize("fn", ["wrapper", "plain"])
+def test_bad_tile_pair_raises_even_when_disabled(fn, bad):
+    """tj < ti or a negative tile raises ValueError from the wrapper and
+    from the plain version, whatever the pair's ``on`` flag says."""
+    rows = np.zeros((512, 2), np.uint32)
+    lanes, tp = _tensors(rows, np.array([(0, 0), bad, (0, 1)]),
+                         on=np.array([1, 0, 1], np.int32))
+    f = (K.hamming_tile_pairs if fn == "wrapper"
+         else K.hamming_tile_pairs_plain)
+    with pytest.raises(ValueError, match="0 <= ti <= tj"):
+        f(lanes, tp, tile=256, part_stride=512, part_valid=512, max_dist=1)
+
+
+@pytest.mark.parametrize("stride,valid", [(300, 250), (700, 256), (100, 7)])
+def test_stride_not_a_multiple_of_the_tile(stride, valid):
+    """A part_stride that no tile divides: the valid rows of a tile are
+    no prefix.  Against numpy brute force over the whole table."""
+    rng = np.random.default_rng(stride)
+    n = 1000  # a ragged last tile as well
+    rows = _words(rng, n, 24)
+    rows[rng.random(n) < 0.2] = 0  # zero words among the real ones
+    ii, jj = np.triu_indices(4)
+    lanes, tp = _tensors(rows, np.stack([ii, jj], axis=1))
+    a, b = K.hamming_tile_pairs(lanes, tp, tile=256, part_stride=stride,
+                                part_valid=valid, max_dist=2)
+    z = rows[:, None, :] ^ rows[None, :, :]
+    d = np.bitwise_count((z | (z >> np.uint32(1)))
+                         & np.uint32(0x55555555)).sum(axis=2)
+    ok = np.arange(n) % stride < valid
+    ra, rb = np.nonzero(np.triu((d <= 2) & ok[:, None] & ok[None, :], k=1))
+    assert len(ra) > 0
+    np.testing.assert_array_equal(a.numpy(), ra)
+    np.testing.assert_array_equal(b.numpy(), rb)
