@@ -54,8 +54,10 @@
 //   wait a memory round trip per match and cost a third of the time.
 //   The counter keeps counting past the buffer's capacity, so the caller
 //   can relaunch with the exact size.
-// The one-hot tensor-core form, TMA or cp.async staging and a persistent
-// grid are left for later work.
+// The one-hot tensor-core form and TMA or cp.async staging are left for
+// later work.  A persistent grid whose blocks take units from an atomic
+// counter measured slower than this list under the hardware's block
+// scheduler: fetching a unit stalls the whole block.
 //
 // The kernel allocates nothing and launches on the caller's stream.  The
 // C entry point returns cudaGetLastError() after the launch.
