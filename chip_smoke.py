@@ -10,20 +10,23 @@ Phases, each printing its own line; any failure exits non-zero:
 1. CUDA is present; the card's name and power limit (nvidia-smi).
 2. Both kernels (humid_tpu_torch/csrc/hamming_sweep.cu, ring_sweep.cu)
    are built from source with nvcc, one process each, started together
-   (seconds; ptxas reports printed).
+   (seconds; ptxas reports printed).  Their disassembly must show the
+   inner loop spending ceil(w / 2) POPC per column at w = 2 and w = 3.
 3. Kernel vs its plain PyTorch version on the card, on sweep inputs built
    exactly as the neighbour engines build them: the bucketed table of a
    1M-read sample (~2e5 uniques, the end-to-end run's shape) and of a
    10M-read sample (~2e6 uniques), both w = 2, tile 2048, m = 1; and a
    dense table of ~1.6e4 uniques, L = 33 (w = 3), m = 2, with partition
    padding.  The (a, b) pair arrays must be identical (integer work: no
-   tolerance).  Three times per shape, CUDA-event means after a warm-up:
+   tolerance).  Four times per shape, CUDA-event means after a warm-up:
    ``kernel_ms``, the kernel alone (the launches of one call into a
    buffer allocated beforehand, nothing else between the events);
+   ``no_hit_kernel_ms``, the same with max_dist -1, where no pair passes;
    ``ms``, the wrapper ``hamming_tile_pairs`` (allocation, launch, the
    one read-back, the sort); ``plain_ms``, the plain version.  Beside
-   them the card's bound for the shape and the kernel's share of it; a
-   kernel time below its bound fails the phase.
+   them the bound of the exact-integer POPC form for the shape (not the
+   card's: ``bound_ms``) and the kernel's share of it; a kernel time
+   below its bound fails the phase.
 4. End to end: a 1M-read sample made by the benchmark recipe (single-end
    100 bp, dup factor 8, 30% one-substitution reads; bench.py's
    gen_dataset), run with ``-n 24 -m 1 -s -a`` on the card in process
@@ -59,7 +62,7 @@ Phases, each printing its own line; any failure exits non-zero:
     runs; ``ms``, the kernel alone (phase 3's ``kernel_ms`` at the 1M-read
     table for the tile sweep, phase 8's one step for the ring);
     ``wrapper_ms``, the same call through its wrapper; ``plain_ms``; the
-    card's bound for the same work.  Then the card's nvidia-smi line and
+    POPC form's bound for the same work.  Then the card's nvidia-smi line and
     the result line ``{"ok": true, "device": {...}}``.
 
 Scratch files go to build/chip_smoke/ inside the checkout.
@@ -128,24 +131,35 @@ def gen_reads(path: str, n_reads: int, read_len: int = 100,
             f.write(rec.tobytes())
 
 
-def sample_uniques(n_reads: int, length: int, n_subst: int, seed: int):
-    """Unique word table of a sample of ``n_reads`` reads by the recipe
-    above, built directly: the n_reads/8 pool words plus one mutated copy
-    per read whose substitution falls inside the word (0.3 * L/100 of the
-    reads), with ``n_subst`` substitutions each."""
-    from humid_tpu_torch import words as W
-    from humid_tpu_torch.ops import unique_words
+def inner_loop_popc(sass: str, kernel: str) -> dict:
+    """POPC instructions per column in the inner loop of the w = 2 and
+    w = 3 instances of ``kernel``, from its disassembly: the stretch
+    between two branches or barriers that holds the most POPC is one group
+    of columns held against the thread's row.  Also that stretch's length
+    and its counts of the other instructions of the loop."""
+    import re
 
-    rng = np.random.default_rng(seed)
-    pool = rng.integers(0, 4, size=(n_reads // 8, length), dtype=np.uint8)
-    n_mut = int(n_reads * 0.3 * length / 100)
-    mut = pool[rng.integers(0, len(pool), n_mut)].copy()
-    for _ in range(n_subst):
-        mut[np.arange(n_mut), rng.integers(0, length, n_mut)] = rng.integers(
-            0, 4, n_mut, dtype=np.uint8)
-    uniq, _, _, _ = unique_words(W.pack_words(np.concatenate([pool, mut])),
-                                 want_inverse=False)
-    return uniq
+    groups = {2: 8, 3: 4}  # columns per group (group_cols, hamming_common.cuh)
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0]
+        w = next((w for w in groups if f"{kernel}ILi{w}EE" in name), None)
+        if w is None:
+            continue
+        ops = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_]+)", fn)
+        stretches, cur = [], []
+        for op in ops:
+            cur.append(op)
+            if op in ("BRA", "EXIT", "BAR"):
+                stretches.append(cur)
+                cur = []
+        hot = max(stretches, key=lambda st: st.count("POPC"))
+        out[f"w{w}"] = {
+            "popc_per_column": hot.count("POPC") / groups[w],
+            "instructions": len(hot),
+            **{op: hot.count(op) for op in ("POPC", "LOP3", "ISETP", "LDS")}}
+    return out
 
 
 def time_cuda(fn, reps: int) -> float:
@@ -179,22 +193,27 @@ def sweep_evaluations(n_rows, tile_pairs, tile, part_stride,
 
 def bound_ms(evaluations: int, w: int, n_bytes: int, card: dict) -> dict:
     """Least time the card could take for ``evaluations`` word pairs of
-    ``w`` lanes: the largest of
+    ``w`` lanes in the exact-integer POPC form, the cheapest formulation
+    that has been built: the largest of
 
     * the bytes moved over the memory rate (3.35e12 B/s, the H100 data
       sheet);
     * the POPC operations over SMs x 16 POPC/clock x the card's maximum
-      SM clock.  The function needs one POPC per 32 bases, ceil(w / 2) a
+      SM clock.  The form needs one POPC per 32 bases, ceil(w / 2) a
       pair: with the words split into bit planes a 32-base difference
       mask is (lo_r ^ lo_c) | (hi_r ^ hi_c).  (One POPC per 16-base lane,
       w a pair, is what the lane form spends, not what the work needs.)
-    * the other integer operations of that form, the cheapest known (an
-      XOR and a three-input logic operation per POPC, and an add or the
-      final compare: 3 ceil(w / 2) a pair), over SMs x 64/clock.
+    * the other integer operations of that form (an XOR and a three-input
+      logic operation per POPC, and an add or the final compare:
+      3 ceil(w / 2) a pair), over SMs x 64/clock.
 
     POPC always comes out ahead of the integer operations (1/16 against
     3/64 of a clock per plane pair); both are computed so that a cheaper
-    formulation of either would show."""
+    formulation of either would show.  It is this form's bound, not the
+    card's: the one-hot int8 tensor-core form, which nobody has built
+    here, is reckoned at about half of it (PERF.md, open questions), so a
+    share of this bound says how well the POPC loop runs, not how far the
+    card is from its limit."""
     plane_pairs = -(-w // 2)
     per_s = card["sms"] * card["sm_hz"]
     popc_ms = evaluations * plane_pairs / (16 * per_s) * 1e3
@@ -266,15 +285,19 @@ def kernel_vs_plain(name, rows, tile_pairs, *, tile, u_pad, u, max_dist,
     if not (torch.equal(again[0], ka) and torch.equal(again[1], kb)):
         raise SmokeFailure(f"{name}: two kernel runs differ")
     kernel_ms = sweep_kernel_ms(lanes, tp, kw, len(ka), 4 * reps)
+    # max_dist -1: no pair passes, the compare loop without the appends.
+    no_hit_ms = sweep_kernel_ms(lanes, tp, {**kw, "max_dist": -1}, 0,
+                                4 * reps)
     ms = time_cuda(lambda: K.hamming_tile_pairs(lanes, tp, **kw), reps)
     plain_ms = time_cuda(lambda: K.hamming_tile_pairs_plain(lanes, tp, **kw),
                          plain_reps)
     evaluations = sweep_evaluations(len(rows), tile_pairs, tile, u_pad, u)
     bound = bound_ms(evaluations, int(lanes.shape[1]),
-                     lanes.numel() * 4 + tp.numel() * 4 + 16 * len(ka), card)
+                     lanes.numel() * 4 + tp.numel() * 4 + 8 * len(ka), card)
     out = {"rows": int(lanes.shape[0]), "w": int(lanes.shape[1]),
            "tile_pairs": int(len(tp)), "pairs": int(len(ka)),
-           "max_abs_err": err, "kernel_ms": kernel_ms, "ms": ms,
+           "max_abs_err": err, "kernel_ms": kernel_ms,
+           "no_hit_kernel_ms": no_hit_ms, "ms": ms,
            "plain_ms": plain_ms, "evaluations": evaluations, **bound,
            "bound_share": within_bound(name, kernel_ms, bound)}
     say(f"phase 3 {name}: kernel == plain (tolerance 0, integer pairs); "
@@ -284,18 +307,19 @@ def kernel_vs_plain(name, rows, tile_pairs, *, tile, u_pad, u, max_dist,
 
 def sweep_phase(device, card) -> dict:
     from humid_tpu_torch.ops.neighbors import bucketed_inputs, dense_inputs
+    from humid_tpu_torch.tools.ring_profile import sample_table
 
     results, tables = {}, {}
     for name, n_reads in (("bucketed_1M_reads", 1_000_000),
                           ("bucketed_10M_reads", 10_000_000)):
-        uniq = tables[name] = sample_uniques(n_reads, 24, 1,
-                                             seed=n_reads % 997)
+        uniq = tables[name] = sample_table(n_reads, seed=n_reads % 997)
         rows, tps, b, u_pad, _ = bucketed_inputs(uniq, 1, 24, 2048)
         say(f"phase 3 {name}: {len(uniq)} uniques, {len(tps)} tile pairs")
         results[name] = kernel_vs_plain(
             name, rows, tps, tile=b, u_pad=u_pad, u=len(uniq), max_dist=1,
             device=device, card=card)
-    uniq = tables["dense_L33_m2"] = sample_uniques(72_000, 33, 2, seed=33)
+    uniq = tables["dense_L33_m2"] = sample_table(72_000, 33, seed=33,
+                                                      n_subst=2)
     rows, tps, b, u_pad = dense_inputs(uniq, 2048)
     say(f"phase 3 dense_L33_m2: {len(uniq)} uniques, u_pad {u_pad}")
     results["dense_L33_m2"] = kernel_vs_plain(
@@ -494,7 +518,7 @@ def ids_phase(device, uniq, card) -> None:
         prep["r_pad"], prep["urows"][0])
     bound = bound_ms(evaluations, int(lanes.shape[1]),
                      lanes.numel() * 4 + tp.numel() * 4 + ids.numel() * 4
-                     + 16 * len(got[0]), card)
+                     + 8 * len(got[0]), card)
     share = within_bound("phase 6", kernel_ms, bound)
     say(f"phase 6: tile sweep with ids == plain (tolerance 0); shard 0 of "
         f"4: {prep['urows'][0]} rows, tile {prep['tile']}, {len(tp)} tile "
@@ -628,9 +652,9 @@ def ring_main_shape_phase(device, uniq, card) -> dict:
                            f"{int(buf.counter.item())} pairs, expected "
                            f"{len(step[0])}")
     step_bound = bound_ms(valid[0] * valid[1], w,
-                          2 * b * w * 4 + 16 * len(step[0]), card)
+                          2 * b * w * 4 + 8 * len(step[0]), card)
     ring_bound = bound_ms(evaluations, w,
-                          len(steps) * 2 * b * w * 4 + 16 * len(want[0]),
+                          len(steps) * 2 * b * w * 4 + 8 * len(want[0]),
                           card)
     out = {"uniques": u, "shards": d, "block_rows": b,
            "launches_per_ring": launches, "evaluations": evaluations,
@@ -721,6 +745,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     sys.path.insert(0, REPO)
     from humid_tpu_torch import _build
+    from humid_tpu_torch.tools.ring_profile import sample_table
 
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -742,6 +767,14 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     for lib in libs:
         say(lib.with_suffix(".log").read_text().strip())
+    for name in kernels:
+        loop = inner_loop_popc(_build.disassemble(name), f"{name}_kernel")
+        say(f"phase 2 {name} inner loop (SASS): {json.dumps(loop)}")
+        for w in (2, 3):
+            if loop[f"w{w}"]["popc_per_column"] != -(-w // 2):
+                raise SmokeFailure(
+                    f"{name}, w = {w}: the inner loop does not spend "
+                    f"ceil(w / 2) POPC a column: {loop}")
 
     device = torch.device("cuda")
     sweeps, tables = sweep_phase(device, card_info)
@@ -749,8 +782,7 @@ def main() -> int:
     uniq_1m = tables["bucketed_1M_reads"]
     ring_err = ring_step_phase(device, uniq_1m, tables["dense_L33_m2"])
     ids_phase(device, uniq_1m, card_info)
-    ring_schedule_phase(device, sample_uniques(400_000, 24, 1,
-                                               seed=7)[:65536])
+    ring_schedule_phase(device, sample_table(400_000, seed=7)[:65536])
     ring = ring_main_shape_phase(device, uniq_1m, card_info)
     mesh_launches = mesh_end_to_end_phase(e2e)
 

@@ -74,6 +74,14 @@ def build_all(names) -> list[Path]:
         return list(ex.map(build, names))
 
 
+def disassemble(name: str) -> str:
+    """The machine code (SASS) of the built ``csrc/<name>.cu``, as
+    ``cuobjdump -sass`` prints it."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(build(name))], check=True,
+                          capture_output=True, text=True).stdout
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` once per process."""

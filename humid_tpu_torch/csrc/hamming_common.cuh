@@ -1,6 +1,6 @@
 // Device code shared by the Hamming kernels (hamming_sweep.cu,
 // ring_sweep.cu): the bit-plane form of 2-bit packed words, the distance
-// of two words in that form, the inner loop that holds a thread's rows
+// of two words in that form, the inner loop that holds a thread's row
 // against a chunk of columns in shared memory, and the block's buffer of
 // matching pairs.
 //
@@ -57,23 +57,13 @@ __device__ __forceinline__ int plane_distance(const uint32_t* row,
 
 // Columns the inner loop takes per step: their plane words are fetched
 // with 16-byte shared-memory loads (a multiple of 4 words, at most 28)
-// and tested against all of a thread's rows before one branch.
+// and tested against the thread's row before one branch.
 __host__ __device__ constexpr int group_cols(int plane_words) {
   return plane_words == 2 ? 8
          : plane_words == 4 ? 4
          : (plane_words % 4 != 0 || plane_words == 8) ? 2
                                                       : 1;
 }
-
-// Rows a thread keeps in registers and holds every column group against.
-// The kernels are written for any count; 1 measured fastest on the H100
-// at every shape (the loop is bound by POPC, which more rows per thread
-// do not spare, and the group that is gone over again after a hit grows
-// with them).  tools/sweep_tune.py overrides it to measure that again.
-#ifndef HUMID_SWEEP_ROWS
-#define HUMID_SWEEP_ROWS 1
-#endif
-constexpr int ROWS_PER_THREAD = HUMID_SWEEP_ROWS;
 
 // Stages columns [0, n) of `src` ([., W] packed lanes) as plane words in
 // `s_cols`, and zero words up to the next multiple of the group size, so
@@ -92,34 +82,35 @@ __device__ __forceinline__ void stage_columns(uint32_t* s_cols,
   }
 }
 
-// Holds R rows (plane form, in registers) against the staged columns
-// [c_begin, c_end) of `s_cols` one pair at a time and calls emit(k, c)
-// for every row k and column c within max_dist.  The slow, exact loop:
-// for the few columns where a test has to follow every distance.
-template <int PAIRS, int R, class Emit>
+// Holds a thread's row (plane form, in registers) against the staged
+// columns [c_begin, c_end) of `s_cols` one at a time and calls emit(c) for
+// every column c within max_dist.  The slow, exact loop: for the few
+// columns where a test has to follow every distance.
+template <int PAIRS, class Emit>
 __device__ __forceinline__ void check_columns(
-    const uint32_t (&rows)[R][2 * PAIRS], const uint32_t* s_cols, int c_begin,
+    const uint32_t (&row)[2 * PAIRS], const uint32_t* s_cols, int c_begin,
     int c_end, int max_dist, Emit emit) {
 #pragma unroll 1
   for (int c = c_begin; c < c_end; ++c)
-#pragma unroll
-    for (int k = 0; k < R; ++k)
-      if (plane_distance<PAIRS>(rows[k], s_cols + c * (2 * PAIRS)) <=
-          max_dist)
-        emit(k, c);
+    if (plane_distance<PAIRS>(row, s_cols + c * (2 * PAIRS)) <= max_dist)
+      emit(c);
 }
 
 // The fast loop over the staged columns [c_begin, c_end): c_begin is a
 // multiple of the group size and the columns are staged up to the next
 // such multiple past c_end.  A group of columns is fetched with 16-byte
-// loads and held against all R rows with one branch for the group; only
-// a group in which some pair passed is gone over again by check_columns.
+// loads and held against the row with one branch for the group; only a
+// group in which some column passed is gone over again by check_columns.
 // So emit sees the padding columns too and has to drop c >= c_end
 // itself, with whatever else decides a pair (validity, triangle, ids):
 // those tests run only for the few pairs that pass the distance test.
-template <int PAIRS, int R, class Emit>
+// One row per thread: the loop is bound by POPC, which more rows per
+// thread do not spare, and the group that is gone over again after a hit
+// grows with them (2 and 4 rows measured slower on the H100 at every
+// shape, PERF.md).
+template <int PAIRS, class Emit>
 __device__ __forceinline__ void compare_columns(
-    const uint32_t (&rows)[R][2 * PAIRS], const uint32_t* s_cols, int c_begin,
+    const uint32_t (&row)[2 * PAIRS], const uint32_t* s_cols, int c_begin,
     int c_end, int max_dist, Emit emit) {
   constexpr int PW = 2 * PAIRS, U = group_cols(PW), Q = U * PW / 4;
   for (int c = c_begin; c < c_end; c += U) {
@@ -136,10 +127,8 @@ __device__ __forceinline__ void compare_columns(
     bool hit = false;
 #pragma unroll
     for (int j = 0; j < U; ++j)
-#pragma unroll
-      for (int k = 0; k < R; ++k)
-        hit |= plane_distance<PAIRS>(rows[k], g + j * PW) <= max_dist;
-    if (hit) check_columns<PAIRS, R>(rows, s_cols, c, c + U, max_dist, emit);
+      hit |= plane_distance<PAIRS>(row, g + j * PW) <= max_dist;
+    if (hit) check_columns<PAIRS>(row, s_cols, c, c + U, max_dist, emit);
   }
 }
 

@@ -32,15 +32,15 @@
 //   with 16-byte shared-memory loads (all threads the same address: a
 //   broadcast) and tests the distance only, with one branch per group;
 //   validity of a ragged row, the triangle, the padded columns and the
-//   run ids are looked at for the few pairs that pass.  It is written for
-//   R rows per thread; R = 1 measured fastest (hamming_common.cuh).
+//   run ids are looked at for the few pairs that pass.  A thread holds
+//   one row: more measured slower (hamming_common.cuh).
 // * The work list is one grid dimension over (tile pair, row block,
 //   column span) units of nearly equal weight, so blocks finish together
 //   whatever the mix of diagonal and full tile pairs, and the number of
 //   tile pairs has no limit; the span is halved until the list has
 //   MIN_UNITS units.  A unit of a diagonal tile pair that lies wholly at
 //   or below the diagonal returns at once.  Inside a unit a warp skips
-//   the columns left of its first row and takes its own 32 * R columns,
+//   the columns left of its first row and takes its own 32 columns,
 //   where every thread is at distance 0 from itself, through the exact
 //   loop (humid::check_columns): nothing of the lower triangle is
 //   compared in the fast loop.
@@ -67,17 +67,10 @@
 namespace {
 
 constexpr int THREADS = 256;  // threads per block (fewer for a small tile)
-// The two sizes below measured best on the H100 (PERF.md); the macros
-// let tools/sweep_tune.py build other values beside them.
-#ifndef HUMID_SWEEP_COLS
-#define HUMID_SWEEP_COLS 256
-#endif
-#ifndef HUMID_SWEEP_MIN_UNITS
-#define HUMID_SWEEP_MIN_UNITS 2048
-#endif
-constexpr int COLS = HUMID_SWEEP_COLS;  // columns staged per step
+// The two sizes below measured best on the H100 (PERF.md).
+constexpr int COLS = 256;  // columns staged per step
 // The column span of a unit is halved while the list is shorter than this.
-constexpr int MIN_UNITS = HUMID_SWEEP_MIN_UNITS;
+constexpr int MIN_UNITS = 2048;
 
 struct SweepArgs {
   const uint32_t* lanes;
@@ -110,7 +103,7 @@ __device__ __forceinline__ int tile_rows(int t, const SweepArgs& a) {
   return (int)max(n, 0LL);
 }
 
-template <int W, int R>
+template <int W>
 __global__ void __launch_bounds__(THREADS) hamming_sweep_kernel(SweepArgs a) {
   constexpr int PAIRS = humid::plane_pairs(W), PW = 2 * PAIRS;
   constexpr int U = humid::group_cols(PW);
@@ -127,7 +120,7 @@ __global__ void __launch_bounds__(THREADS) hamming_sweep_kernel(SweepArgs a) {
   if (p[2] == 0) return;  // disabled tile pair
   const bool diag = ti == tj;
   const int unit = blockIdx.x % units;
-  const int row0 = (unit / a.spans) * (blockDim.x * R);
+  const int row0 = (unit / a.spans) * blockDim.x;
   const int n_rows_t = tile_rows(ti, a);
   const int span_end = min((unit % a.spans + 1) * a.span, tile_rows(tj, a));
   int c_first = (unit % a.spans) * a.span;
@@ -137,24 +130,19 @@ __global__ void __launch_bounds__(THREADS) hamming_sweep_kernel(SweepArgs a) {
 
   const long long row_base = (long long)ti * a.tile;
   const long long col_base = (long long)tj * a.tile;
-  const int r_first = row0 + threadIdx.x * R;  // this thread's first row
-  uint32_t rows[R][PW];
-  unsigned row_ok = 0;
+  const int r = row0 + threadIdx.x;  // this thread's row
+  const long long gr = row_base + r;
+  const bool row_ok = r < n_rows_t && (a.prefix || word_valid(gr, a));
+  uint32_t row[PW];
 #pragma unroll
-  for (int k = 0; k < R; ++k) {
-    const long long gr = row_base + r_first + k;
-    const bool ok = r_first + k < n_rows_t && (a.prefix || word_valid(gr, a));
-    row_ok |= (unsigned)ok << k;
-#pragma unroll
-    for (int q = 0; q < PAIRS; ++q) {
-      rows[k][2 * q] = rows[k][2 * q + 1] = 0u;
-      if (ok)
-        humid::load_plane_pair<W>(a.lanes + gr * W, q, rows[k][2 * q],
-                                  rows[k][2 * q + 1]);
-    }
+  for (int q = 0; q < PAIRS; ++q) {
+    row[2 * q] = row[2 * q + 1] = 0u;
+    if (row_ok)
+      humid::load_plane_pair<W>(a.lanes + gr * W, q, row[2 * q],
+                                row[2 * q + 1]);
   }
-  const bool warp_has_rows = __any_sync(0xffffffffu, row_ok != 0);
-  const int warp_r_first = row0 + (threadIdx.x & ~31) * R;
+  const bool warp_has_rows = __any_sync(0xffffffffu, row_ok);
+  const int warp_r_first = row0 + (threadIdx.x & ~31);
 
   if (threadIdx.x == 0) s_hits.reset();
   for (int c0 = c_first; c0 < span_end; c0 += COLS) {
@@ -162,11 +150,10 @@ __global__ void __launch_bounds__(THREADS) hamming_sweep_kernel(SweepArgs a) {
     humid::stage_columns<W>(s_cols, a.lanes + (col_base + c0) * W, c_cnt);
     __syncthreads();
     if (warp_has_rows) {
-      const auto emit = [&](int k, int c) {
+      const auto emit = [&](int c) {
         const int cl = c0 + c;
-        if (c >= c_cnt || !(row_ok >> k & 1u) || (diag && cl <= r_first + k))
-          return;
-        const long long gr = row_base + r_first + k, gc = col_base + cl;
+        if (c >= c_cnt || !row_ok || (diag && cl <= r)) return;
+        const long long gc = col_base + cl;
         if (!a.prefix && !word_valid(gc, a)) return;
         if (a.ids != nullptr && a.ids[gr] != a.ids[gc]) return;
         s_hits.add(gr * a.n_rows + gc, a.counter, a.cap, a.out_keys);
@@ -174,16 +161,16 @@ __global__ void __launch_bounds__(THREADS) hamming_sweep_kernel(SweepArgs a) {
       int c_begin = 0;
       if (diag) {
         // Columns left of the warp's first row pair with none of its
-        // rows; the next 32 * R, its own, with some: every thread is at
+        // rows; the next 32, its own, with some: every thread is at
         // distance 0 from itself there, so they take the exact loop.
         const int own = min(max(warp_r_first + 1 - c0, 0), c_cnt);
-        const int right = min(max(warp_r_first + 32 * R - c0, 0), c_cnt);
-        humid::check_columns<PAIRS, R>(rows, s_cols, own, right, a.max_dist,
-                                       emit);
+        const int right = min(max(warp_r_first + 32 - c0, 0), c_cnt);
+        humid::check_columns<PAIRS>(row, s_cols, own, right, a.max_dist,
+                                    emit);
         c_begin = (right + U - 1) / U * U;
       }
-      humid::compare_columns<PAIRS, R>(rows, s_cols, c_begin, c_cnt,
-                                       a.max_dist, emit);
+      humid::compare_columns<PAIRS>(row, s_cols, c_begin, c_cnt, a.max_dist,
+                                    emit);
     }
     // Also the barrier after which s_cols may be staged again.
     s_hits.flush(a.counter, a.cap, a.out_keys);
@@ -192,10 +179,9 @@ __global__ void __launch_bounds__(THREADS) hamming_sweep_kernel(SweepArgs a) {
 
 template <int W>
 cudaError_t launch(SweepArgs a, long long nb, cudaStream_t stream) {
-  constexpr int R = humid::ROWS_PER_THREAD;
-  // A tile below THREADS * R rows gets a smaller block, not idle warps.
-  const int threads = min(THREADS, ((a.tile + R - 1) / R + 31) / 32 * 32);
-  a.row_blocks = (a.tile + threads * R - 1) / (threads * R);
+  // A tile below THREADS rows gets a smaller block, not idle warps.
+  const int threads = min(THREADS, (a.tile + 31) / 32 * 32);
+  a.row_blocks = (a.tile + threads - 1) / threads;
   // Halve the column span until the list has MIN_UNITS units (or a span
   // is one staged chunk): small lists still fill the card.
   a.span = (a.tile + COLS - 1) / COLS * COLS;
@@ -205,7 +191,7 @@ cudaError_t launch(SweepArgs a, long long nb, cudaStream_t stream) {
   a.spans = (a.tile + a.span - 1) / a.span;
   const long long blocks = nb * a.row_blocks * a.spans;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  hamming_sweep_kernel<W, R><<<(unsigned)blocks, threads, 0, stream>>>(a);
+  hamming_sweep_kernel<W><<<(unsigned)blocks, threads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 

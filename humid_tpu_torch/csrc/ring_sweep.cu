@@ -35,18 +35,17 @@
 // against 0.7 MB.
 //
 // What the design does about it: the inner loop is the tile sweep's
-// (humid::compare_columns).  A thread converts its R rows to bit planes
-// once and keeps them in registers (R = 1 measured fastest); a block of
-// THREADS threads walks a span of columns, converting and staging COLS of
+// (humid::compare_columns).  A thread converts its row to bit planes
+// once and keeps it in registers; a block of THREADS threads walks a span of columns, converting and staging COLS of
 // them at a time in shared memory, where every thread reads the same 16
 // bytes at once (a broadcast), and holds each column group against its
-// rows before one branch.  The grid is two-dimensional, row blocks by
+// row before one branch.  The grid is two-dimensional, row blocks by
 // column spans of SPAN columns, halved while a small step would leave
 // the grid below MIN_BLOCKS blocks, so a step fills the 132 SMs whatever
 // the shard count makes of b.  Only valid columns are staged, and blocks
 // that hold no valid row or column, or on an upper_only step lie wholly
 // at or below the diagonal, return at once; on such a step a warp skips
-// the columns left of its first row and takes its own 32 * R columns
+// the columns left of its first row and takes its own 32 columns
 // through the exact loop.  Matches are collected in the block's buffer
 // in shared memory (humid::HitBuffer) as one key min * u + max each.
 // The tensor-core one-hot form, TMA staging and stores to a peer card
@@ -71,7 +70,7 @@ int valid_rows(long long base, long long u, int b) {
   return n <= 0 ? 0 : (n < b ? (int)n : b);
 }
 
-template <int W, int R>
+template <int W>
 __global__ void __launch_bounds__(THREADS)
 ring_sweep_kernel(const uint32_t* __restrict__ rows_in,
                   const uint32_t* __restrict__ cols, int n_rows, int n_cols,
@@ -84,25 +83,23 @@ ring_sweep_kernel(const uint32_t* __restrict__ rows_in,
   __shared__ __align__(16) uint32_t s_cols[COLS * PW];
   __shared__ humid::HitBuffer s_hits;
 
-  const int row0 = blockIdx.x * (THREADS * R);
+  const int row0 = blockIdx.x * THREADS;
   const int span_end = min((int)(blockIdx.y + 1) * span, n_cols);
   int c_first = blockIdx.y * span;
   // Same block on both sides: no column at or below row0 can match.
   if (upper_only) c_first = max(c_first, (row0 + 1) / COLS * COLS);
   if (c_first >= span_end) return;  // uniform over the block
 
-  const int r_first = row0 + threadIdx.x * R;  // this thread's first row
-  uint32_t rows[R][PW];
+  const int r = row0 + threadIdx.x;  // this thread's row
+  uint32_t row[PW];
 #pragma unroll
-  for (int k = 0; k < R; ++k)
-#pragma unroll
-    for (int q = 0; q < PAIRS; ++q) {
-      rows[k][2 * q] = rows[k][2 * q + 1] = 0u;
-      if (r_first + k < n_rows)
-        humid::load_plane_pair<W>(rows_in + (long long)(r_first + k) * W, q,
-                                  rows[k][2 * q], rows[k][2 * q + 1]);
-    }
-  const int warp_r_first = row0 + (threadIdx.x & ~31) * R;
+  for (int q = 0; q < PAIRS; ++q) {
+    row[2 * q] = row[2 * q + 1] = 0u;
+    if (r < n_rows)
+      humid::load_plane_pair<W>(rows_in + (long long)r * W, q, row[2 * q],
+                                row[2 * q + 1]);
+  }
+  const int warp_r_first = row0 + (threadIdx.x & ~31);
   const bool warp_has_rows = warp_r_first < n_rows;
 
   if (threadIdx.x == 0) s_hits.reset();
@@ -111,8 +108,8 @@ ring_sweep_kernel(const uint32_t* __restrict__ rows_in,
     humid::stage_columns<W>(s_cols, cols + (long long)c0 * W, c_cnt);
     __syncthreads();
     if (warp_has_rows) {
-      const auto emit = [&](int k, int c) {
-        const int r = r_first + k, cl = c0 + c;
+      const auto emit = [&](int c) {
+        const int cl = c0 + c;
         if (c >= c_cnt || r >= n_rows || (upper_only && cl <= r)) return;
         const long long ga = row_base + r, gb = col_base + cl;
         s_hits.add(min(ga, gb) * u + max(ga, gb), counter, cap, out_keys);
@@ -120,16 +117,15 @@ ring_sweep_kernel(const uint32_t* __restrict__ rows_in,
       int c_begin = 0;
       if (upper_only) {
         // Columns left of the warp's first row pair with none of its
-        // rows; the next 32 * R, its own, with some: every thread is at
+        // rows; the next 32, its own, with some: every thread is at
         // distance 0 from itself there, so they take the exact loop.
         const int own = min(max(warp_r_first + 1 - c0, 0), c_cnt);
-        const int right = min(max(warp_r_first + 32 * R - c0, 0), c_cnt);
-        humid::check_columns<PAIRS, R>(rows, s_cols, own, right, max_dist,
-                                       emit);
+        const int right = min(max(warp_r_first + 32 - c0, 0), c_cnt);
+        humid::check_columns<PAIRS>(row, s_cols, own, right, max_dist, emit);
         c_begin = (right + U - 1) / U * U;
       }
-      humid::compare_columns<PAIRS, R>(rows, s_cols, c_begin, c_cnt, max_dist,
-                                       emit);
+      humid::compare_columns<PAIRS>(row, s_cols, c_begin, c_cnt, max_dist,
+                                    emit);
     }
     // Also the barrier after which s_cols may be staged again.
     s_hits.flush(counter, cap, out_keys);
@@ -142,15 +138,14 @@ cudaError_t launch(const uint32_t* rows, const uint32_t* cols, int n_rows,
                    long long u, int max_dist, int upper_only,
                    long long* out_keys, long long cap,
                    unsigned long long* counter, cudaStream_t stream) {
-  constexpr int R = humid::ROWS_PER_THREAD;
-  const int row_blocks = (n_rows + THREADS * R - 1) / (THREADS * R);
+  const int row_blocks = (n_rows + THREADS - 1) / THREADS;
   // A small step still fills the card: halve the span (down to one
   // staged chunk) while the grid has fewer than MIN_BLOCKS blocks.
   int span = SPAN;
   while (span > COLS && row_blocks * ((n_cols + span - 1) / span) < MIN_BLOCKS)
     span /= 2;
   const dim3 grid(row_blocks, (n_cols + span - 1) / span);
-  ring_sweep_kernel<W, R><<<grid, THREADS, 0, stream>>>(
+  ring_sweep_kernel<W><<<grid, THREADS, 0, stream>>>(
       rows, cols, n_rows, n_cols, span, row_base, col_base, u, max_dist,
       upper_only, out_keys, cap, counter);
   return cudaGetLastError();

@@ -337,6 +337,8 @@ def sharded_neighbor_pairs_ring(
     u, w = packed.shape
     if u <= 1 or max_dist == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    if u >= 1 << 31:
+        raise ValueError(f"{u} rows: pair keys need u < 2^31")
     b = -(-u // d)
     if not ring_fits(u, d, block_cap):
         raise RingLimitExceeded(

@@ -4,7 +4,8 @@
                                                  [--trace FILE]
 
 Builds the unique table of an N-read sample (pool of N/8 random 24-base
-words plus one-substitution copies, the recipe of chip_smoke.py), runs
+words plus one-substitution copies: ``sample_table``, which
+chip_smoke.py uses for its tables too), runs
 ``sharded_neighbor_pairs_ring`` on D shards once to warm up, then once
 under ``torch.profiler``, and prints one JSON line: the card, the device
 time of the ring kernels and of the slot copies between shards (the

@@ -304,6 +304,18 @@ def test_ring_block_pairs_rejects_bad_input():
         R.ring_block_pairs(t, t[:4], **kw)
     with pytest.raises(ValueError, match="upper_only"):
         R.ring_block_pairs(t, t, **{**kw, "col_base": 8, "upper_only": True})
+    with pytest.raises(ValueError, match="2\\^31"):
+        R.ring_block_pairs(t, t, **{**kw, "u": 1 << 31})
+
+
+def test_ring_rejects_a_table_whose_keys_overflow():
+    """Pair keys are a * u + b in one int64: the ring refuses u >= 2^31
+    before it allocates anything (a broadcast view stands in for the
+    table)."""
+    table = np.broadcast_to(np.zeros((1, 2), np.uint32), (1 << 31, 2))
+    with pytest.raises(ValueError, match="2\\^31"):
+        P.sharded_neighbor_pairs_ring(table, 1, word_length=24,
+                                      mesh=_cpu_mesh(1), block_cap=1 << 31)
 
 
 def _ids_case(rng):
