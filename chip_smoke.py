@@ -58,12 +58,44 @@ Phases, each printing its own line; any failure exits non-zero:
    sweep launches >= 1), and through ``python -m humid_tpu_torch`` with
    HUMID_TPU_TORCH_STRATEGY=ring HUMID_TPU_TORCH_SHARDS=4; all outputs
    byte-identical to phase 4's and to baseline/humid_ref.
-10. One JSON line describing both kernels: launches on their end-to-end
+10. Edit distance, the DP on the card against the CPU (tolerance 0):
+    ``_banded_levenshtein`` (one 512 x 512 tile, and batched),
+    ``_banded_levenshtein_pairs`` and ``edit_block`` on the card equal
+    the same functions on the CPU, and a scalar Levenshtein written here,
+    at L = 18, 24, 33 and m = 1, 2, 3.
+11. Edit distance, the engines on the card: on 8,192 uniques of L = 33
+    (m = 2) and on 65,536 of L = 24 (m = 1), tables with shifted copies
+    of a quarter of their words (``with_indels``), the dense scan, the
+    shifted-segment search (``runs``), ``sharded`` on 1, 2 and 4 shards,
+    the shifted mesh search and the dense edit ring give the same pair
+    arrays.  Wall times of each.  Then the three edit programs at the shapes PERF.md
+    records: the dense tile scan at the 8,192-unique table, one step of
+    the dense edit ring at the block 4 shards give that table, and
+    ``edit_pairs_verify`` on the candidates of the 1M-read table; for each
+    the time by CUDA events, the kernels it launched (``torch.profiler``)
+    and two bounds (the DP's integer operations over the card's rate; the
+    bytes its elementwise operations write and read back over the memory
+    rate).
+12. ``-e`` end to end: the phase-4 file with ``-n 24 -m 1 -e -s -a``
+    through ``humid_tpu_torch.run`` on the card by the default route
+    (which must take the shifted-segment search), by ``sharded`` on 4
+    shards and through ``python -m humid_tpu_torch -e``; all outputs
+    byte-identical to ``baseline/humid_ref -e``; phase seconds, and the
+    neighbour phase's parts (joins, dedupe, verify) timed on their own.
+    At m = 1 words of one length are within edit distance 1 exactly when
+    within Hamming distance 1, so that run's clusters are phase 4's.  So
+    also a run where the metrics differ: phase 11's 8,192 words of L = 33
+    with shifted copies, written as 24,576 reads, with ``-n 33 -m 2 -s
+    -a`` and with ``-e`` added; each byte-identical to
+    ``baseline/humid_ref`` with the same flags, and ``-e`` must leave
+    fewer clusters.
+13. One JSON line describing both kernels: launches on their end-to-end
     runs; ``ms``, the kernel alone (phase 3's ``kernel_ms`` at the 1M-read
     table for the tile sweep, phase 8's one step for the ring);
     ``wrapper_ms``, the same call through its wrapper; ``plain_ms``; the
-    POPC form's bound for the same work.  Then the card's nvidia-smi line and
-    the result line ``{"ok": true, "device": {...}}``.
+    POPC form's bound for the same work.  The edit path launches neither
+    kernel and adds none.  Then the card's nvidia-smi line and the result
+    line ``{"ok": true, "device": {...}}``.
 
 Scratch files go to build/chip_smoke/ inside the checkout.
 """
@@ -106,6 +138,13 @@ def gen_reads(path: str, n_reads: int, read_len: int = 100,
     seqs[np.flatnonzero(mut), pos[mut]] = bases[
         rng.integers(0, 4, int(mut.sum()))
     ]
+    write_fastq(path, seqs)
+
+
+def write_fastq(path: str, seqs: np.ndarray) -> None:
+    """[n, read_len] uint8 base characters -> FastQ records named
+    @read000000000, @read000000001, ..., every quality 'I'."""
+    n_reads, read_len = seqs.shape
     with open(path, "wb") as f:
         chunk = 1 << 18
         for lo in range(0, n_reads, chunk):
@@ -413,10 +452,11 @@ def end_to_end_phase(n_reads: int, device: str = "cuda") -> dict:
         _same_files(out_ref, out_cli)
         ref_check = f"byte-identical to baseline/humid_ref ({ref_seconds:.3f} s)"
     say(f"phase 4 reference check: {ref_check}")
+    have_ref = bool(gxx and os.path.exists("/usr/include/zlib.h"))
     return {"seconds": seconds, "cli_seconds": cli_seconds,
             "launches": launches, "stats": st, "fastq": fq, "flags": flags,
-            "outs": [out_run] + ([out_ref] if gxx and os.path.exists(
-                "/usr/include/zlib.h") else [])}
+            "humid_ref": os.path.join(WORK, "humid_ref") if have_ref else None,
+            "outs": [out_run] + ([out_ref] if have_ref else [])}
 
 
 def _equal_pairs(name, got, want) -> int:
@@ -704,8 +744,8 @@ def mesh_end_to_end_phase(e2e: dict, device: str = "cuda") -> dict:
         if counts[strategy] < 1:
             raise SmokeFailure(f"strategy {strategy} launched no kernel of "
                                f"{mod.__name__}")
-        if engine != {"strategy": strategy, "shards": 4,
-                      "ring_fallbacks": 0}:
+        if engine != {"metric": "hamming", "strategy": strategy,
+                      "shards": 4, "ring_fallbacks": 0}:
             raise SmokeFailure(f"unexpected engine record {engine}")
         for ref in e2e["outs"]:
             _same_files(ref, out)
@@ -727,6 +767,434 @@ def mesh_end_to_end_phase(e2e: dict, device: str = "cuda") -> dict:
         f"all mesh outputs byte-identical to phase 4's"
         + (" and to baseline/humid_ref" if len(e2e["outs"]) > 1 else ""))
     return counts
+
+
+def _levenshtein(x, y) -> int:
+    """Scalar Levenshtein distance (full DP, no band)."""
+    row = list(range(len(y) + 1))
+    for i in range(1, len(x) + 1):
+        nrow = [i]
+        for j in range(1, len(y) + 1):
+            nrow.append(min(row[j - 1] + (x[i - 1] != y[j - 1]), row[j] + 1,
+                            nrow[-1] + 1))
+        row = nrow
+    return row[-1]
+
+
+def _edited_codes(rng, n, length, m, pool):
+    """[n, length] uint8 codes: pool words, some with a substitution, some
+    shifted right by up to m bases (an indel at each end)."""
+    base = rng.integers(0, 4, (pool, length), dtype=np.uint8)
+    codes = base[rng.integers(0, pool, n)]
+    sub = np.flatnonzero(rng.random(n) < 0.4)
+    codes[sub, rng.integers(0, length, len(sub))] = rng.integers(
+        0, 4, len(sub), dtype=np.uint8)
+    for d in range(1, m + 1):
+        rows = np.flatnonzero(rng.random(n) < 0.2)
+        codes[rows, d:] = codes[rows, :length - d]
+        codes[rows, :d] = rng.integers(0, 4, (len(rows), d), dtype=np.uint8)
+    return codes
+
+
+def with_indels(table, length: int, n: int, seed: int):
+    """A unique table of ``n`` words, ascending: the first 4n/5 words of
+    ``table`` plus, for every fourth of them, a copy shifted right by one
+    base behind a random first base (an insertion at the head and a
+    deletion at the tail).  A shifted copy is within edit distance 2 of
+    its source and, as a rule, far from it in Hamming distance."""
+    from humid_tpu_torch import words as W
+    from humid_tpu_torch.ops import unique_words
+
+    rng = np.random.default_rng(seed)
+    codes = W.unpack_words(table[:-(-4 * n // 5) + 8], length)
+    shifted = codes[::4].copy()
+    shifted[:, 1:] = codes[::4, :-1]
+    shifted[:, 0] = rng.integers(0, 4, len(shifted), dtype=np.uint8)
+    return unique_words(W.pack_words(np.concatenate([codes, shifted])),
+                        want_inverse=False)[0][:n]
+
+
+def _equal_tensors(name, got, want) -> None:
+    import torch
+
+    if not torch.equal(got.cpu(), want.cpu()):
+        raise SmokeFailure(f"{name}: the card and the CPU differ")
+
+
+def edit_dp_phase(device) -> None:
+    """Phase 10: the banded-Levenshtein programs on the card against the
+    CPU and a scalar Levenshtein (integer work: tolerance 0)."""
+    import torch
+
+    from humid_tpu_torch import words as W
+    from humid_tpu_torch.ops import edit as E
+
+    for length in (18, 24, 33):
+        for m in (1, 2, 3):
+            rng = np.random.default_rng(100 * m + length)
+            codes = _edited_codes(rng, 1536, length, m, pool=24)
+            a = torch.from_numpy(codes[:512].astype(np.int32))
+            b = torch.from_numpy(codes[512:1024].astype(np.int32))
+            tile = E._banded_levenshtein(a.to(device), b.to(device), m,
+                                         length)
+            want = E._banded_levenshtein(a, b, m, length)
+            name = f"phase 10 L={length} m={m}"
+            _equal_tensors(f"{name} tile", tile, want)
+            if int(want.min()) != 0 or int(want.max()) != m + 1:
+                raise SmokeFailure(f"{name}: distances span "
+                                   f"{int(want.min())}..{int(want.max())}")
+            for r, c in rng.integers(0, 512, (150, 2)):
+                full = _levenshtein(codes[r].tolist(),
+                                    codes[512 + c].tolist())
+                if int(want[r, c]) != min(full, m + 1):
+                    raise SmokeFailure(
+                        f"{name}: pair ({r}, {c}) banded {int(want[r, c])} "
+                        f"against scalar {full}")
+            a3 = torch.from_numpy(codes.astype(np.int32)).view(3, 512, length)
+            b3 = a3.flip(0).contiguous()
+            _equal_tensors(f"{name} batched",
+                           E._banded_levenshtein(a3.to(device),
+                                                 b3.to(device), m, length),
+                           E._banded_levenshtein(a3, b3, m, length))
+            _equal_tensors(f"{name} pairs",
+                           E._banded_levenshtein_pairs(
+                               a.to(device), b.to(device), m, length),
+                           E._banded_levenshtein_pairs(a, b, m, length))
+            lanes = torch.from_numpy(W.pack_words(codes).view(np.int32))
+            on_card = lanes.to(device)
+            blocks = zip(E.edit_block(on_card[:512], on_card[256:768], 0,
+                                      256, m, 1 << 12, length),
+                         E.edit_block(lanes[:512], lanes[256:768], 0, 256,
+                                      m, 1 << 12, length))
+            for part, (g, w_) in zip(("rows", "columns", "count"), blocks):
+                _equal_tensors(f"{name} edit_block {part}", g, w_)
+    say("phase 10: _banded_levenshtein (512 x 512 tile and batched), "
+        "_banded_levenshtein_pairs and edit_block on the card == on the CPU "
+        "== a scalar Levenshtein at L = 18, 24, 33 and m = 1, 2, 3 "
+        "(tolerance 0)")
+
+
+def kernels_launched(fn, name: str) -> dict:
+    """Device kernels, copies and memsets that one call of ``fn``
+    launches, counted in a ``torch.profiler`` trace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(WORK, f"trace_{name}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    os.remove(path)
+    count = lambda cat: sum(1 for e in events if e.get("cat") == cat)
+    out = {"kernels": count("kernel"), "copies": count("gpu_memcpy"),
+           "memsets": count("gpu_memset"),
+           "kernel_ms": sum(e["dur"] for e in events
+                            if e.get("cat") == "kernel") / 1e3}
+    if not out["kernels"]:
+        raise SmokeFailure(f"{name}: the trace holds no kernel")
+    return out
+
+
+def edit_bounds(pairs: int, m: int, length: int, card: dict) -> dict:
+    """Two least times for the banded DP of ``pairs`` word pairs.
+
+    ``ops_bound_ms``: about 8 (2m + 1) L int32 operations a pair (per
+    band cell a compare, three adds, three minimums and the clamp) over
+    SMs x 64 a clock x the maximum SM clock: what one fused kernel that
+    keeps the band in registers could approach.  ``bytes_bound_ms``: what
+    the program as written, one elementwise operation after another, must
+    move through device memory, over 3.35e12 B/s.  Per DP row and pair:
+    the mismatch flags written (band bytes) and read, the state read and
+    the new state written (4 band each), the up term's add and minimum
+    (5 x 4 (band - 1)), the clamp (8 band), and per chained cell an add
+    and a minimum (5 x 4 (band - 1)).  The larger of the two is
+    ``bound_ms``; ``bound_by`` says which."""
+    band = 2 * m + 1
+    ops_ms = pairs * 8 * band * length / (
+        64 * card["sms"] * card["sm_hz"]) * 1e3
+    row_bytes = 2 * band + 8 * band + 20 * (band - 1) + 8 * band \
+        + 20 * (band - 1)
+    bytes_ms = pairs * length * row_bytes / 3.35e12 * 1e3
+    return {"ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def edit_engines_phase(device, table_l33, table_l24, uniq_1m, card) -> dict:
+    """Phase 11: the edit engines against each other on the card, and the
+    three edit programs timed at the shapes PERF.md records."""
+    import torch
+
+    from humid_tpu_torch import parallel as P
+    from humid_tpu_torch.ops import edit as E
+    from humid_tpu_torch.ops import neighbors as N
+    from humid_tpu_torch.ops.hamming import lanes_tensor
+
+    if len(table_l33) != 8192 or len(table_l24) != 65536:
+        raise SmokeFailure(f"phase 11: tables of {len(table_l33)} and "
+                           f"{len(table_l24)} uniques")
+    for name, table, length, m, ring_shards in (
+            ("L33_m2_8192", table_l33, 33, 2, (1, 2, 4)),
+            ("L24_m1_65536", table_l24, 24, 1, (4,))):
+        kw = dict(metric="edit", word_length=length, device=device)
+        N.find_neighbor_pairs(table[:4096], m, strategy="dense", **kw)  # warm
+        times = {}
+        dense, times["dense"] = _timed(lambda: N.find_neighbor_pairs(
+            table, m, strategy="dense", **kw))
+        hamming = N.find_neighbor_pairs(table, m, word_length=length,
+                                        strategy="dense", device=device)
+        # Words of one length: one edit is one substitution, so at m = 1
+        # the two metrics agree; from m = 2 on the shifted copies add
+        # pairs that only the edit distance finds.
+        key = lambda p: p[0] * len(table) + p[1]
+        if not (len(hamming[0]) > 0
+                and np.isin(key(hamming), key(dense)).all()
+                and (len(dense[0]) == len(hamming[0]) if m == 1
+                     else len(dense[0]) > len(hamming[0]))):
+            raise SmokeFailure(
+                f"phase 11 {name}: {len(dense[0])} edit pairs against "
+                f"{len(hamming[0])} Hamming pairs at m = {m}")
+        info = {}
+        got, times["runs"] = _timed(lambda: N.find_neighbor_pairs(
+            table, m, strategy="runs", info=info, **kw))
+        _equal_pairs(f"phase 11 {name} runs vs dense", got, dense)
+        candidates = info["candidates"]
+        for d in (1, 2, 4):
+            info = {}
+            got, times[f"sharded_{d}"] = _timed(
+                lambda: N.find_neighbor_pairs(
+                    table, m, strategy="sharded",
+                    mesh=P.data_mesh(d, device), info=info, **kw))
+            _equal_pairs(f"phase 11 {name} sharded on {d} vs dense", got,
+                         dense)
+            if (info["shards"], info["join_cap_fallbacks"]) != (d, 0) \
+                    or not info["candidates"]:
+                raise SmokeFailure(f"phase 11 {name}: sharded ran {info}")
+        got, times["shifted_mesh_4"] = _timed(
+            lambda: P.sharded_edit_pairs_shifted(
+                table, m, word_length=length, mesh=P.data_mesh(4, device)))
+        _equal_pairs(f"phase 11 {name} shifted mesh search vs dense", got,
+                     dense)
+        for d in ring_shards:
+            got, times[f"edit_ring_{d}"] = _timed(
+                lambda: P.sharded_neighbor_pairs(
+                    table, m, metric="edit", word_length=length,
+                    mesh=P.data_mesh(d, device)))
+            _equal_pairs(f"phase 11 {name} dense edit ring on {d} vs dense",
+                         got, dense)
+        say(f"phase 11 {name}: dense == runs == sharded (1, 2, 4 shards) == "
+            f"shifted mesh search == dense edit ring {ring_shards} "
+            f"(tolerance 0); {len(dense[0])} pairs ({len(hamming[0])} of "
+            f"them within the Hamming distance), {candidates} candidates; "
+            f"wall ms {json.dumps(times)}")
+
+    # The three programs, at the shapes PERF.md records.
+    programs = {}
+    length, m, u = 33, 2, 8192
+    codes = E._unpack(lanes_tensor(table_l33, device), length)
+    tiles = codes.view(-1, 512, length)
+    ii, jj = np.triu_indices(len(tiles))
+    ti = torch.from_numpy(ii).to(device)
+    tj = torch.from_numpy(jj).to(device)
+    dp = lambda: E._banded_levenshtein(tiles[ti], tiles[tj], m, length)
+    pairs = len(ii) * 512 * 512
+    programs["dense_scan_L33_m2_8192"] = {
+        "tile_pairs": len(ii), "pairs_evaluated": pairs,
+        "dp_ms": time_cuda(dp, 3), "dp_launches": kernels_launched(
+            dp, "dense_dp"),
+        "ms": time_cuda(lambda: N.dense_edit_pairs(
+            table_l33, m, word_length=length, device=device), 3),
+        "launches": kernels_launched(lambda: N.dense_edit_pairs(
+            table_l33, m, word_length=length, device=device), "dense_scan"),
+        **edit_bounds(pairs, m, length, card)}
+
+    b = u // 4
+    all_tiles = np.stack(np.meshgrid(np.arange(b // 512), np.arange(b // 512),
+                                     indexing="ij"), axis=-1).reshape(-1, 2)
+    step = lambda: E.edit_tile_pairs(
+        codes[:b], codes[b:2 * b], all_tiles, tile=512, max_dist=m,
+        word_length=length, row_valid=b, col_valid=b, upper_only=False)
+    pairs = len(all_tiles) * 512 * 512
+    programs["edit_ring_step_L33_m2_block_2048"] = {
+        "block_rows": b, "tile_pairs": len(all_tiles),
+        "pairs_evaluated": pairs, "matches": len(step()[0]),
+        "ms": time_cuda(step, 5),
+        "launches": kernels_launched(step, "ring_step"),
+        **edit_bounds(pairs, m, length, card)}
+
+    # The verify program on the candidates of the 1M-read table, and the
+    # host parts of the shifted search around it.
+    t0 = time.perf_counter()
+    parts = [N._merge_join(ka, oa, kb, ob, d == 0, N.default_join_cap(),
+                           f"(segment {s}, shift {d})")
+             for s, d, ka, oa, kb, ob in N.shifted_joins(uniq_1m, 1, 24)]
+    t1 = time.perf_counter()
+    ca, cb = N._dedupe_pairs(np.concatenate([p[0] for p in parts]),
+                             np.concatenate([p[1] for p in parts]))
+    t2 = time.perf_counter()
+    verify = lambda: E.edit_pairs_verify(uniq_1m, ca, cb, 1, 24,
+                                         device=device)
+    kept = verify()
+    _equal_pairs("phase 11 verify on the card vs the CPU", kept,
+                 E.edit_pairs_verify(uniq_1m, ca, cb, 1, 24, device="cpu"))
+    lanes = lanes_tensor(uniq_1m, device)
+    ia = torch.from_numpy(ca).to(device)
+    ib = torch.from_numpy(cb).to(device)
+    dp = lambda: E._banded_levenshtein_pairs(
+        E._unpack(lanes[ia], 24), E._unpack(lanes[ib], 24), 1, 24)
+    programs["verify_1M_read_candidates"] = {
+        "uniques": len(uniq_1m), "joins": len(parts),
+        "candidates": int(sum(len(p[0]) for p in parts)),
+        "pairs_evaluated": len(ca), "kept": len(kept[0]),
+        "joins_host_ms": (t1 - t0) * 1e3, "dedupe_host_ms": (t2 - t1) * 1e3,
+        "dp_ms": time_cuda(dp, 5), "dp_launches": kernels_launched(
+            dp, "verify_dp"),
+        "ms": time_cuda(verify, 5),
+        "launches": kernels_launched(verify, "verify"),
+        **edit_bounds(len(ca), 1, 24, card)}
+    for name, rec in programs.items():
+        say(f"phase 11 program {name}: {json.dumps(rec)}")
+    return programs
+
+
+def edit_end_to_end_phase(e2e: dict, device: str = "cuda") -> dict:
+    """Phase 12: the phase-4 file with -e through run() by the default
+    route and by ``sharded`` on 4 shards, and through the CLI."""
+    import humid_tpu_torch
+    from humid_tpu_torch.ops import cuda_hamming
+    from humid_tpu_torch.parallel import cuda_ring, data_mesh
+
+    fq = e2e["fastq"]
+    flags = ["-n", "24", "-m", "1", "-e", "-s", "-a"]
+    out_ref = None
+    if e2e["humid_ref"]:
+        out_ref = os.path.join(WORK, "out_ref_edit")
+        os.makedirs(out_ref)
+        t0 = time.perf_counter()
+        subprocess.run([e2e["humid_ref"], *flags, "-d", out_ref, "-l",
+                        os.devnull, fq], check=True, capture_output=True)
+        say(f"phase 12 baseline/humid_ref -e: "
+            f"{time.perf_counter() - t0:.3f} s")
+    phase = "Calculating neighbours using Levenshtein distance"
+    results = {}
+    outs = []
+    for name, opts, want in (
+            ("auto", {}, {"metric": "edit", "strategy": "runs",
+                          "join_cap_fallbacks": 0}),
+            ("sharded", {"strategy": "sharded",
+                         "mesh": data_mesh(4, device)},
+             {"metric": "edit", "strategy": "sharded", "shards": 4,
+              "ring_fallbacks": 0, "join_cap_fallbacks": 0})):
+        out = os.path.join(WORK, f"out_edit_{name}")
+        cuda_ring.LAUNCHES = cuda_hamming.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = humid_tpu_torch.run(
+            [fq], word_length=24, distance=1, edit=True, dir_name=out,
+            log_name=os.path.join(WORK, f"edit_{name}.log"), run_stats=True,
+            write_annotated=True, device=device, neighbor_opts=opts)
+        seconds = time.perf_counter() - t0
+        engine = dict(res.extra["engine"])
+        say(f"phase 12 run(edit=True) {name}: {seconds:.3f} s, engine "
+            f"{json.dumps(engine)}, timings "
+            f"{json.dumps(res.extra['timings'])}")
+        candidates = engine.pop("candidates", 0)
+        if engine != want or not candidates:
+            raise SmokeFailure(f"phase 12 {name}: unexpected engine record "
+                               f"{res.extra['engine']}")
+        if cuda_ring.LAUNCHES or cuda_hamming.LAUNCHES:
+            raise SmokeFailure("the edit path launched a Hamming kernel")
+        results[name] = {"seconds": seconds, "candidates": candidates,
+                         "neighbours_s": res.extra["timings"][phase]}
+        outs.append(out)
+    out_cli = os.path.join(WORK, "out_cli_edit")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "humid_tpu_torch", *flags, "-d", out_cli,
+         "-l", os.path.join(WORK, "cli_edit.log"), fq], cwd=REPO,
+        env=dict(os.environ, HUMID_TPU_TORCH_DEVICE=device),
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise SmokeFailure(f"python -m humid_tpu_torch -e failed:\n"
+                           f"{proc.stderr}")
+    results["cli_seconds"] = time.perf_counter() - t0
+    with open(os.path.join(WORK, "cli_edit.log")) as f:
+        if phase not in f.read():
+            raise SmokeFailure("the CLI's log does not name the Levenshtein "
+                               "phase")
+    outs.append(out_cli)
+    for out in outs[1:]:
+        _same_files(outs[0], out)
+    if out_ref:
+        _same_files(out_ref, outs[0])
+    st = _stats(out_cli)
+    say(f"phase 12: python -m humid_tpu_torch -e {results['cli_seconds']:.3f}"
+        f" s; stats {json.dumps(st)}; default route, sharded on 4 shards "
+        f"and the CLI byte-identical"
+        + (" to baseline/humid_ref -e" if out_ref
+           else " (no g++ or zlib.h: baseline/humid_ref not run)"))
+    return results
+
+
+def edit_indel_end_to_end_phase(e2e: dict, table, length: int = 33,
+                                device: str = "cuda") -> None:
+    """Phase 12, second part: reads made of ``table``'s words (a table of
+    :func:`with_indels`), where -e at m = 2 joins clusters that the
+    Hamming distance keeps apart."""
+    import humid_tpu_torch
+    from humid_tpu_torch import words as W
+
+    rng = np.random.default_rng(12)
+    idx = np.concatenate([np.arange(len(table)),
+                          rng.integers(0, len(table), 2 * len(table))])
+    rng.shuffle(idx)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    fq = os.path.join(WORK, "indels.fastq")
+    write_fastq(fq, bases[W.unpack_words(table, length)[idx]])
+    clusters = {}
+    for name, edit in (("hamming", False), ("edit", True)):
+        out = os.path.join(WORK, f"out_indels_{name}")
+        res = humid_tpu_torch.run(
+            [fq], word_length=length, distance=2, edit=edit, dir_name=out,
+            log_name=os.devnull, run_stats=True, write_annotated=True,
+            device=device)
+        engine = res.extra["engine"]
+        if (engine["metric"], engine["strategy"]) != (
+                name, "runs" if edit else "bucketed"):
+            raise SmokeFailure(f"phase 12 indels {name}: engine {engine}")
+        clusters[name] = _stats(out)["clusters"]
+        if e2e["humid_ref"]:
+            out_ref = os.path.join(WORK, f"out_ref_indels_{name}")
+            os.makedirs(out_ref)
+            subprocess.run(
+                [e2e["humid_ref"], "-n", str(length), "-m", "2", "-s", "-a",
+                 *(["-e"] if edit else []), "-d", out_ref, "-l", os.devnull,
+                 fq], check=True, capture_output=True)
+            _same_files(out_ref, out)
+    if not clusters["edit"] < clusters["hamming"]:
+        raise SmokeFailure(f"phase 12 indels: -e left {clusters['edit']} "
+                           f"clusters, Hamming {clusters['hamming']}")
+    say(f"phase 12 indels: {len(idx)} reads of {len(table)} words, -n "
+        f"{length} -m 2: {clusters['hamming']} clusters, with -e "
+        f"{clusters['edit']}; both runs byte-identical"
+        + (" to baseline/humid_ref with the same flags" if e2e["humid_ref"]
+           else " (baseline/humid_ref not run)"))
 
 
 def main() -> int:
@@ -782,9 +1250,17 @@ def main() -> int:
     uniq_1m = tables["bucketed_1M_reads"]
     ring_err = ring_step_phase(device, uniq_1m, tables["dense_L33_m2"])
     ids_phase(device, uniq_1m, card_info)
-    ring_schedule_phase(device, sample_table(400_000, seed=7)[:65536])
+    table_65k = sample_table(400_000, seed=7)[:65536]
+    ring_schedule_phase(device, table_65k)
     ring = ring_main_shape_phase(device, uniq_1m, card_info)
     mesh_launches = mesh_end_to_end_phase(e2e)
+    edit_dp_phase(device)
+    table_indels = with_indels(tables["dense_L33_m2"], 33, 8192, seed=1)
+    edit_engines_phase(device, table_indels,
+                       with_indels(table_65k, 24, 65536, seed=2), uniq_1m,
+                       card_info)
+    edit_end_to_end_phase(e2e)
+    edit_indel_end_to_end_phase(e2e, table_indels)
 
     main_shape = sweeps["bucketed_1M_reads"]
     no_library = None  # no single PyTorch call computes either sweep

@@ -2,7 +2,8 @@
 
 The PyTorch port of :mod:`humid_tpu` (the JAX/TPU package, kept beside it
 as the reference): 2-bit packed integer fingerprints, a hand-written CUDA
-Hamming tile sweep for Hopper GPUs (``csrc/hamming_sweep.cu``), and the
+Hamming tile sweep for Hopper GPUs (``csrc/hamming_sweep.cu``), banded
+Levenshtein programs for edit distance (``ops/edit.py``), and the
 reference's exact clustering.  It imports torch and never jax.  The
 device is ``device=`` or HUMID_TPU_TORCH_DEVICE (default ``cuda``); see
 ``_device.py``.

@@ -12,8 +12,8 @@ commandIO boolean flags TOGGLE their default, so ``-q`` turns the dedup
 output OFF — replicated here with store_false.
 
 The neighbour search runs on the torch device named by
-HUMID_TPU_TORCH_DEVICE (default ``cuda``).  Edit distance (``-e``) and
-the multi-host flags are not yet ported: they exit with status 2.
+HUMID_TPU_TORCH_DEVICE (default ``cuda``).  The multi-host flags are not
+yet ported: they exit with status 2.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-a", action="store_true",
                    help="write annotated FastQ files")
     p.add_argument("-e", action="store_true",
-                   help="use edit distance (not yet ported)")
+                   help="use edit distance")
     p.add_argument("-x", action="store_true",
                    help="use maximum clustering method")
     p.add_argument("--coordinator", type=str, default=None,
@@ -68,9 +68,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.e:
-        parser.error("-e (edit distance) is not yet ported to "
-                     "humid_tpu_torch; use humid_tpu")
     if (args.coordinator is not None or args.num_processes is not None
             or args.process_id is not None):
         parser.error("--coordinator/--num-processes/--process-id "
@@ -87,6 +84,7 @@ def main(argv: list[str] | None = None) -> int:
             write_dedup=args.q,
             write_annotated=args.a,
             maximum=args.x,
+            edit=args.e,
         )
     except _USER_ERRORS as exc:
         print(f"humid-tpu-torch: error: {exc}", file=sys.stderr)

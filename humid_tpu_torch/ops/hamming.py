@@ -35,10 +35,18 @@ the same bits that the kernel wrappers take.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK_LO = 0x55555555
 MASK_HI = 0xAAAAAAAA
+
+
+def lanes_tensor(packed: np.ndarray, device: torch.device) -> torch.Tensor:
+    """[N, w] uint32 lanes (numpy) -> the int32 tensor of the same bits on
+    ``device``, the form the kernel wrappers and the edit programs take."""
+    return torch.from_numpy(
+        np.ascontiguousarray(packed, np.uint32).view(np.int32)).to(device)
 
 
 def lanes_u32(lanes: torch.Tensor) -> torch.Tensor:

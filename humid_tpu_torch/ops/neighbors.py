@@ -1,18 +1,30 @@
-"""Neighbour-pair search (Hamming distance).
+"""Neighbour-pair search (Hamming and edit distance).
 
 Replaces the reference's per-word fuzzy trie traversal
-(``findHammingNeighbours``, humid.cc:113-130) with sweeps over tiles of
-the packed unique-word table, all of which run through one kernel, the
-Hamming tile sweep (:mod:`.cuda_hamming`):
+(``findHammingNeighbours``/``findEditNeighbours``, humid.cc:113-158).
+
+Hamming distance: sweeps over tiles of the packed unique-word table, all
+of which run through one kernel, the Hamming tile sweep
+(:mod:`.cuda_hamming`):
 
 * ``dense`` — every upper-triangular tile pair of the table;
 * ``bucketed`` — pigeonhole partitions: the ``max_dist + 1`` permuted
   copies of the table are stacked, and only the tile pairs that hold a
   run of words sharing a segment are swept.
 
-Both return the same pair set: every unordered pair within ``max_dist``.
-So do the engines of the local device mesh (:mod:`..parallel`), reached
-through the strategies ``ring``, ``sharded`` and ``sharded_bucketed``.
+Edit distance (``metric="edit"``, the ``-e`` flag), through the banded
+Levenshtein programs of :mod:`.edit`:
+
+* ``dense`` — the same tile pairs through the batched tile scan;
+* ``runs`` — the shifted-segment search
+  (:func:`find_edit_pairs_shifted`): equal-key merge joins per (segment,
+  shift) on the host give candidate pairs, which the pairwise DP
+  verifies on the device.
+
+Every engine of a metric returns the same pair set: every unordered pair
+within ``max_dist``.  So do the engines of the local device mesh
+(:mod:`..parallel`), reached through the strategies ``ring``, ``sharded``
+and ``sharded_bucketed``.
 
 CSR ordering invariant: every node's neighbour list is sorted ascending by
 unique-word index.  This equals the reference's neighbour-list order — the
@@ -32,10 +44,24 @@ import torch
 
 from .. import words as W
 from .._device import resolve_device
-from .cuda_hamming import hamming_tile_pairs
+from .._util import avail_bytes, concat_aranges
+from . import edit as E
+from .cuda_hamming import _sorted_pairs, hamming_tile_pairs
+from .hamming import lanes_tensor
 from .unique import _stable_argsort_u64, _unique_u64
 
+try:
+    from .._hostops import merge_join_pairs as _merge_join_native
+except ImportError:  # pragma: no cover - extension not built
+    _merge_join_native = None
+
 STRATEGY_ENV_VAR = "HUMID_TPU_TORCH_STRATEGY"
+
+
+class JoinCapExceeded(ValueError):
+    """A shifted-segment join needs more candidate pairs than ``join_cap``
+    allows (degenerate key space).  The auto strategy falls back to the
+    dense edit scan on this, and only this, error."""
 
 
 def _round_up(x: int, m: int) -> int:
@@ -47,17 +73,19 @@ def _empty_pairs():
 
 
 def choose_engine(u: int, max_dist: int, word_length: int | None,
-                  runs_threshold: int = 1 << 11) -> str:
-    """The ``auto`` strategy: ``bucketed`` when the pigeonhole split
-    applies and the table is large, else ``dense``.
+                  runs_threshold: int = 1 << 11,
+                  metric: str = "hamming") -> str:
+    """The ``auto`` strategy: when the segment split applies and the table
+    is large, ``bucketed`` for Hamming distance and ``runs`` (the
+    shifted-segment search) for edit distance; else ``dense``.
 
-    The JAX package routes auto through a calibrated engine choice and
-    off-chip picks its host ``runs`` engine; the calibrated router and
-    the host runs engine come to the port later (ROADMAP.md).  Every
-    engine returns the same pair set, so the choice changes no output
-    byte."""
+    The JAX package routes Hamming auto through a calibrated engine
+    choice and off-chip picks its host ``runs`` engine; the calibrated
+    router and the host runs engine come to the port later (ROADMAP.md).
+    Every engine returns the same pair set, so the choice changes no
+    output byte."""
     if max_dist >= 1 and word_length is not None and u > runs_threshold:
-        return "bucketed"
+        return "runs" if metric == "edit" else "bucketed"
     return "dense"
 
 
@@ -66,8 +94,7 @@ def sweep_tensors(rows: np.ndarray, tile_pairs: np.ndarray,
     """Host sweep inputs -> the kernel's tensors on ``device``: [N, w]
     uint32 ``rows`` as int32 lanes, [nb, 2] (ti, tj) as [nb, 3] int32
     (ti, tj, on=1)."""
-    lanes = torch.from_numpy(
-        np.ascontiguousarray(rows, np.uint32).view(np.int32)).to(device)
+    lanes = lanes_tensor(rows, device)
     tp = np.ones((len(tile_pairs), 3), np.int32)
     tp[:, :2] = tile_pairs
     return lanes, torch.from_numpy(tp).to(device)
@@ -99,77 +126,163 @@ def find_neighbor_pairs(
     packed: np.ndarray,
     max_dist: int,
     *,
+    metric: str = "hamming",
     word_length: int | None = None,
     tile: int = 2048,
     strategy: str = "auto",
     runs_threshold: int = 1 << 11,
+    join_cap: int | None = None,
     device: str | torch.device | None = None,
     mesh=None,
     info: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """All unordered pairs (a, b), a < b, of unique words within
-    ``max_dist`` differing bases.
+    ``max_dist``.
 
     Args:
       packed: [U, W] uint32 unique fingerprints in ascending order.
       max_dist: distance threshold (-m flag).
-      word_length: bases per word (needed by the bucketed engines).
-      strategy: "dense", "bucketed", "auto" (:func:`choose_engine`), or a
-        search over the local device mesh (:mod:`..parallel`): "ring" (the
-        ring kernel; the reference calls it "pallas_ring"), "sharded"
-        (the bucketed mesh search when ``max_dist >= 1``, ``word_length``
-        is known and U > ``runs_threshold``, else the ring) or
-        "sharded_bucketed" (force the bucketed mesh search).
+      metric: "hamming" (differing bases) or "edit" (Levenshtein, the -e
+        flag; needs ``word_length``).
+      word_length: bases per word (needed by every engine but the dense
+        Hamming sweep).
+      strategy: "dense"; "bucketed" (Hamming only); "runs" (edit only: the
+        shifted-segment search); "auto" (:func:`choose_engine`); or a
+        search over the local device mesh (:mod:`..parallel`): "ring"
+        (the Hamming ring kernel; the reference calls it "pallas_ring"),
+        "sharded" (above ``runs_threshold`` with ``max_dist >= 1`` the
+        bucketed mesh search, for edit the shifted mesh search; else the
+        dense ring of the metric) or "sharded_bucketed" (force the
+        bucketed mesh search; Hamming only).
         $HUMID_TPU_TORCH_STRATEGY replaces "auto"; an explicit argument
         wins.
-      device: torch device of the sweep (see ``_device.resolve_device``).
+      join_cap: most candidate pairs one (segment, shift) join of the
+        shifted edit searches may produce (default: a quarter of the
+        host's available memory at 16 bytes a pair, at least 2^26).
+        Beyond it :class:`JoinCapExceeded` is raised; "auto" and
+        "sharded" then complete through the dense engine.
+      device: torch device of the search (see ``_device.resolve_device``).
       mesh: devices of the mesh strategies, one per shard (default:
         ``parallel.data_mesh(device=device)``, whose size
         $HUMID_TPU_TORCH_SHARDS sets).
-      info: if given, a dict that receives what this call ran:
-        "strategy" and, for the mesh strategies, "shards" (mesh size) and
-        "ring_fallbacks" (1 if a forced ring went to the dense sweep
-        because a block exceeded the ring's cap, else 0).
+      info: if given, a dict that receives what this call ran: "metric",
+        "strategy" (the engine that produced the pairs), for the mesh
+        strategies "shards" (mesh size) and "ring_fallbacks" (1 if a
+        forced ring went to the dense sweep because a block exceeded the
+        ring's cap, else 0), and for the shifted edit searches
+        "candidates" (pairs the joins produced) and "join_cap_fallbacks"
+        (1 if the search went to the dense engine because a join exceeded
+        ``join_cap``, else 0).
 
     Returns:
       (a, b): int64 arrays with a < b, sorted by (a, b).
     """
     u, w = packed.shape
+    if metric not in ("hamming", "edit"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if metric == "edit" and word_length is None:
+        raise ValueError("edit metric requires word_length")
     env_strategy = os.environ.get(STRATEGY_ENV_VAR)
     if env_strategy and strategy == "auto":
         strategy = env_strategy
-    if strategy == "auto":
-        strategy = choose_engine(u, max_dist, word_length, runs_threshold)
+    auto_chosen = strategy == "auto"
+    if auto_chosen:
+        strategy = choose_engine(u, max_dist, word_length, runs_threshold,
+                                 metric)
     info = {} if info is None else info
-    info["strategy"] = strategy
+    info.update(metric=metric, strategy=strategy)
+    if metric == "edit" and strategy == "bucketed":
+        raise ValueError(
+            "bucketed strategy supports only the hamming metric "
+            "(pigeonhole segments do not bound edit distance)")
     if u <= 1:
         return _empty_pairs()
     dev = resolve_device(device)
     if strategy in ("ring", "sharded", "sharded_bucketed"):
-        return _mesh_search(packed, max_dist, strategy,
+        return _mesh_search(packed, max_dist, strategy, metric=metric,
                             word_length=word_length, tile=tile,
-                            runs_threshold=runs_threshold, device=dev,
-                            mesh=mesh, info=info)
+                            runs_threshold=runs_threshold, join_cap=join_cap,
+                            device=dev, mesh=mesh, info=info)
+    if strategy == "runs" and metric == "edit":
+        info["join_cap_fallbacks"] = 0
+        try:
+            return find_edit_pairs_shifted(
+                packed, max_dist, word_length=word_length, join_cap=join_cap,
+                device=dev, info=info)
+        except JoinCapExceeded:
+            if not auto_chosen:
+                raise
+            # Degenerate key space: dense is slower but always correct,
+            # like the reference's own exhaustive walk.
+            info.update(strategy="dense", join_cap_fallbacks=1)
+            strategy = "dense"
     if strategy == "bucketed":
         return find_neighbor_pairs_bucketed(
             packed, max_dist, word_length=word_length, tile=tile, device=dev)
     if strategy != "dense":
-        raise ValueError(f"unknown strategy {strategy!r}")
+        raise ValueError(f"unknown strategy {strategy!r} for the {metric} "
+                         f"metric")
+    if metric == "edit":
+        return dense_edit_pairs(packed, max_dist, word_length=word_length,
+                                tile=tile, device=dev)
     rows, tile_pairs, b, u_pad = dense_inputs(packed, tile)
     return _tile_sweep(rows, tile_pairs, tile=b, u_pad=u_pad, u=u,
                        max_dist=max_dist, device=dev)
 
 
-def _mesh_search(packed, max_dist, strategy, *, word_length, tile,
-                 runs_threshold, device, mesh, info):
+def dense_edit_pairs(packed: np.ndarray, max_dist: int, *, word_length: int,
+                     tile: int = 2048,
+                     device: str | torch.device | None = None):
+    """The dense edit scan: every upper-triangular tile pair of the table
+    (tiles of at most 512 rows: a pair of tiles holds 2m + 1 band cells
+    per word pair) through the banded-Levenshtein tile scan.  The codes
+    are unpacked once on the device; (a, b) int64 numpy, sorted."""
+    dev = resolve_device(device)
+    u = len(packed)
+    rows, tile_pairs, b, _ = dense_inputs(packed, min(tile, 512))
+    codes = E._unpack(lanes_tensor(rows, dev), word_length)
+    a, bb = E.edit_tile_pairs(
+        codes, codes, tile_pairs, tile=b, max_dist=max_dist,
+        word_length=word_length, row_valid=u, col_valid=u, upper_only=True)
+    a, bb = _sorted_pairs(a, bb, u)
+    return a.cpu().numpy(), bb.cpu().numpy()
+
+
+def _mesh_search(packed, max_dist, strategy, *, metric, word_length, tile,
+                 runs_threshold, join_cap, device, mesh, info):
     """The mesh strategies of :func:`find_neighbor_pairs`."""
     from .. import parallel as P
 
     mesh = mesh or P.data_mesh(device=device)
     info.update(shards=len(mesh), ring_fallbacks=0)
-    if strategy == "sharded_bucketed" or (
-            strategy == "sharded" and max_dist >= 1
-            and word_length is not None and len(packed) > runs_threshold):
+    segments_apply = (max_dist >= 1 and word_length is not None
+                      and len(packed) > runs_threshold)
+    if metric == "edit":
+        # Unshifted pigeonhole buckets do not bound edit distance, so the
+        # bucketed mesh search cannot serve it, and the ring kernel
+        # counts differing bases.
+        if strategy == "sharded_bucketed":
+            raise ValueError(
+                "sharded_bucketed supports only the hamming metric "
+                "(pigeonhole segments do not bound edit distance); "
+                "use strategy='sharded'")
+        if strategy == "ring":
+            raise ValueError(f"ring strategy: unknown metric {metric!r}")
+        # Subquadratic first: the (segment, shift) joins sharded over the
+        # mesh; a degenerate key space goes to the dense edit ring.
+        if segments_apply:
+            info["join_cap_fallbacks"] = 0
+            try:
+                return P.sharded_edit_pairs_shifted(
+                    packed, max_dist, word_length=word_length, mesh=mesh,
+                    tile=tile, join_cap=join_cap, info=info)
+            except JoinCapExceeded:
+                info["join_cap_fallbacks"] = 1
+        return P.sharded_neighbor_pairs(packed, max_dist, mesh=mesh,
+                                        tile=tile, metric="edit",
+                                        word_length=word_length)
+    if strategy == "sharded_bucketed" or (strategy == "sharded"
+                                          and segments_apply):
         if word_length is None:
             raise ValueError("sharded_bucketed strategy requires word_length")
         return P.sharded_neighbor_pairs_bucketed(
@@ -368,6 +481,207 @@ def find_neighbor_pairs_bucketed(
     gb = orders[pb // u_pad, pb % u_pad]
     # A pair agreeing on k>1 segments appears k times; dedupe + sort.
     return _dedupe_pairs(np.minimum(ga, gb), np.maximum(ga, gb))
+
+
+def _segment_keys_at(packed: np.ndarray, word_length: int, lo: int,
+                     hi: int, codes: np.ndarray | None = None
+                     ) -> np.ndarray:
+    """[U] uint64 keys of the bases at positions [lo, hi) of every word
+    (same bit layout as :func:`_segment_run_ids`).  ``codes`` (pre-unpacked
+    [U, L]) avoids re-unpacking wide words on every (segment, shift)."""
+    u, w = packed.shape
+    width = 2 * (hi - lo)
+    if w <= 2:
+        word64 = packed[:, 0].astype(np.uint64) << np.uint64(32)
+        if w == 2:
+            word64 |= packed[:, 1].astype(np.uint64)
+        return ((word64 >> np.uint64(64 - 2 * hi))
+                & np.uint64((1 << width) - 1))
+    if codes is None:
+        codes = W.unpack_words(packed, word_length)
+    k = np.zeros(u, np.uint64)
+    for c in range(lo, hi):
+        k = (k << np.uint64(2)) | codes[:, c].astype(np.uint64)
+    return k
+
+
+def _sorted_run_counts(sk: np.ndarray):
+    """(values, counts) of a sorted uint64 array (no re-sort)."""
+    if not len(sk):
+        return sk, np.zeros(0, np.int64)
+    new = np.empty(len(sk), bool)
+    new[0] = True
+    np.not_equal(sk[1:], sk[:-1], out=new[1:])
+    starts = np.flatnonzero(new)
+    return sk[starts], np.diff(np.append(starts, len(sk)))
+
+
+def _matching_runs(va: np.ndarray, vb: np.ndarray):
+    """Runs of two sorted-unique key arrays that share a key: (ia, ib)
+    with va[ia] == vb[ib]."""
+    if not len(va):
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    pos = np.searchsorted(va, vb)
+    pos_c = np.minimum(pos, len(va) - 1)
+    ib = np.flatnonzero((pos < len(va)) & (va[pos_c] == vb))
+    return pos[ib], ib
+
+
+def _join_size(ka_sorted: np.ndarray, kb_sorted: np.ndarray,
+               self_join: bool) -> int:
+    """Equal-key join output size from the sorted key arrays alone: the
+    unordered in-run pairs of a self join, else the sum of the run
+    products (a word that meets itself is still counted)."""
+    ua, ca = _sorted_run_counts(ka_sorted)
+    if self_join:
+        return int((ca * (ca - 1) // 2).sum())
+    ub, cb = _sorted_run_counts(kb_sorted)
+    ia, ib = _matching_runs(ua, ub)
+    return int((ca[ia] * cb[ib]).sum())
+
+
+def _merge_join_numpy(ka_sorted: np.ndarray, oa: np.ndarray,
+                      kb_sorted: np.ndarray, ob: np.ndarray,
+                      self_join: bool):
+    """The equal-key merge join in numpy (the host extension's
+    ``merge_join_pairs`` when that is not built): for every key both
+    sorted views hold, the cross product of its rows in ``oa`` and in
+    ``ob``, as (min, max) with self pairs dropped; a self join (both
+    views the same) emits each unordered pair once.  The pair set equals
+    the native join's; the order differs, and the caller dedupes."""
+    va, ca = _sorted_run_counts(ka_sorted)
+    sa = np.cumsum(ca) - ca
+    if self_join:
+        # Position p of a run of c rows pairs with the c - 1 - p rows
+        # after it.
+        within = concat_aranges(ca)
+        n_after = np.repeat(ca, ca) - 1 - within
+        left = np.repeat(np.arange(len(oa)), n_after)
+        right = left + 1 + concat_aranges(n_after)
+    else:
+        vb, cb = _sorted_run_counts(kb_sorted)
+        sb = np.cumsum(cb) - cb
+        ia, ib = _matching_runs(va, vb)
+        # Every row of a matched A run pairs with the whole B run.
+        rows_a = np.repeat(sa[ia], ca[ia]) + concat_aranges(ca[ia])
+        n_b = np.repeat(cb[ib], ca[ia])
+        left = np.repeat(rows_a, n_b)
+        right = np.repeat(np.repeat(sb[ib], ca[ia]), n_b) \
+            + concat_aranges(n_b)
+    a, b = oa[left], ob[right]
+    keep = a != b
+    a, b = a[keep], b[keep]
+    return np.minimum(a, b), np.maximum(a, b)
+
+
+def _merge_join(ka, oa, kb, ob, self_join: bool, join_cap: int, where: str):
+    """One (segment, shift) join: candidate pairs (a, b), a < b, of the
+    rows whose keys ``ka[oa]`` and ``kb[ob]`` (``oa``/``ob`` sort them)
+    are equal.  The output size is reckoned from the run lengths first,
+    so :class:`JoinCapExceeded` is raised before anything is allocated."""
+    ka_sorted = ka[oa]
+    kb_sorted = ka_sorted if self_join else kb[ob]
+    need = _join_size(ka_sorted, kb_sorted, self_join)
+    if need > join_cap:
+        raise JoinCapExceeded(
+            f"shifted-segment join for {where} needs {need} candidate "
+            f"pairs (> join_cap={join_cap}); the key space is degenerate "
+            f"- use strategy='dense' (CLI: {STRATEGY_ENV_VAR}=dense)")
+    if _merge_join_native is None:
+        return _merge_join_numpy(ka_sorted, oa, kb_sorted, ob, self_join)
+    outa = np.empty(need, np.int64)
+    outb = np.empty(need, np.int64)
+    n = _merge_join_native(
+        np.ascontiguousarray(ka), np.ascontiguousarray(oa),
+        np.ascontiguousarray(kb), np.ascontiguousarray(ob),
+        int(self_join), outa, outb)
+    if n < 0:
+        raise RuntimeError(f"merge join for {where} produced {-n} pairs, "
+                           f"more than the {need} its run lengths allow")
+    return outa[:n], outb[:n]
+
+
+def default_join_cap() -> int:
+    """A quarter of the host's available memory at 16 bytes a pair, at
+    least 2^26 pairs."""
+    return max(1 << 26, avail_bytes() // 4 // 16)
+
+
+def shifted_joins(packed: np.ndarray, max_dist: int, word_length: int):
+    """The (segment, shift) joins of the shifted-segment searches: yields
+    (s, d, ka, oa, kb, ob) per join — the canonical keys of segment s and
+    the order that sorts them, and the keys of the same segment read d
+    bases further right with theirs (the very same arrays when d == 0, a
+    self join)."""
+    u = len(packed)
+    n_seg = max_dist + 1
+    bounds = [word_length * s // n_seg for s in range(n_seg + 1)]
+    codes = (W.unpack_words(packed, word_length) if packed.shape[1] > 2
+             else None)
+    for s in range(n_seg):
+        lo, hi = bounds[s], bounds[s + 1]
+        ka = _segment_keys_at(packed, word_length, lo, hi, codes)
+        # Segment 0's canonical key is the word prefix: identity order
+        # (verified - a permuted table would silently lose pairs).
+        oa = (np.arange(u, dtype=np.int64)
+              if s == 0 and np.all(ka[1:] >= ka[:-1])
+              else _stable_argsort_u64(ka))
+        for d in range(-max_dist, max_dist + 1):
+            if lo + d < 0 or hi + d > word_length:
+                continue
+            if d == 0:
+                yield s, d, ka, oa, ka, oa
+            else:
+                kb = _segment_keys_at(packed, word_length, lo + d, hi + d,
+                                      codes)
+                yield s, d, ka, oa, kb, _stable_argsort_u64(kb)
+
+
+def find_edit_pairs_shifted(
+    packed: np.ndarray,
+    max_dist: int,
+    *,
+    word_length: int,
+    join_cap: int | None = None,
+    device: str | torch.device | None = None,
+    info: dict | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Subquadratic Levenshtein neighbour pairs via shifted segments.
+
+    Partition lemma with indels: in an alignment with <= m edits over
+    m + 1 contiguous query segments, at least one segment is untouched, so
+    it appears exactly in the partner word at its own position offset by
+    the indel balance d in [-m, m].  For every (segment, shift) the
+    equal-key pairs of (segment value at canonical position) x (segment
+    value at shifted position) are candidates, generated by a sorted
+    merge join on the host and verified with the banded Levenshtein DP
+    on ``device`` (:func:`.edit.edit_pairs_verify`).  Candidates ~ real
+    pairs + (m+1)(2m+1) * U^2/4^(L/(m+1)) random collisions: subquadratic
+    for typical word lengths, replacing the dense O(U^2) edit scan (findEditNeighbours,
+    humid.cc:140-158).
+
+    A join whose output would exceed ``join_cap`` (degenerate key space,
+    e.g. all words sharing a segment) raises :class:`JoinCapExceeded`."""
+    u, w = packed.shape
+    if u <= 1 or max_dist == 0:
+        return _empty_pairs()
+    if join_cap is None:
+        join_cap = default_join_cap()
+    info = {} if info is None else info
+    parts_a, parts_b = [], []
+    for s, d, ka, oa, kb, ob in shifted_joins(packed, max_dist, word_length):
+        a, b = _merge_join(ka, oa, kb, ob, d == 0, join_cap,
+                           f"(segment {s}, shift {d})")
+        parts_a.append(a)
+        parts_b.append(b)
+    a = np.concatenate(parts_a)
+    b = np.concatenate(parts_b)
+    info["candidates"] = len(a)
+    if not len(a):
+        return _empty_pairs()
+    a, b = _dedupe_pairs(a, b)
+    return E.edit_pairs_verify(packed, a, b, max_dist, word_length,
+                               device=device)
 
 
 def pairs_to_csr(

@@ -235,34 +235,75 @@ def ring_block_pairs(rows: torch.Tensor, cols: torch.Tensor, *,
 
 
 @dataclass
-class _Shard:
-    """One shard of the ring: its comm slots, pair buffer and, on CUDA,
-    its two streams and the "slot received" events."""
+class RingSlots:
+    """One shard's side of the ring's data movement, whatever travels: its
+    comm slots and, on CUDA, its two streams and the "slot received"
+    events.  The Hamming ring puts its pair buffer beside it; the dense
+    edit ring (``neighbors.sharded_neighbor_pairs``) uses it as it is."""
     dev: torch.device
-    slots: torch.Tensor  # [steps, b, w] int32; slot 0 is the own block
-    buf: _PairBuffer
+    slots: torch.Tensor  # [steps, *block.shape]; slot 0 is the own block
     compute: "torch.cuda.Stream | None" = None
     copy: "torch.cuda.Stream | None" = None
     received: list = field(default_factory=list)  # one event per slot
 
-    def on(self, stream):
+    def _on(self, stream):
         """Context that makes ``stream`` current (nothing on the CPU)."""
         if stream is None:
             return contextlib.nullcontext()
         return torch.cuda.stream(stream)
 
+    def forward(self, dst: "RingSlots", s: int) -> None:
+        """Copy slot s into slot s + 1 of ``dst`` on the copy streams,
+        after slot s was received; record "slot s + 1 received"."""
+        if dst.copy is None:
+            dst.slots[s + 1].copy_(self.slots[s])
+            return
+        with dst._on(dst.copy):
+            dst.copy.wait_event(self.received[s])
+            # A copy between two cards runs on the source card's current
+            # stream and is ordered into the destination's: make both the
+            # copy streams.
+            other = self.copy if self.dev != dst.dev else None
+            with self._on(other):
+                if other is not None:
+                    other.wait_event(self.received[s])
+                dst.slots[s + 1].copy_(self.slots[s], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(dst.copy)
+            dst.received[s + 1] = ev
 
-def _new_shard(block: torch.Tensor, steps: int, cap: int,
-               dev: torch.device) -> _Shard:
-    """Allocate everything a shard's ring uses, before its streams start:
-    a side stream may only touch memory whose allocation the ``received``
-    event of slot 0 is ordered after."""
+    @contextlib.contextmanager
+    def computing(self, s: int):
+        """Context of step s's compute: the compute stream is current and
+        has waited for slot s."""
+        with self._on(self.compute):
+            if self.compute is not None:
+                self.compute.wait_event(self.received[s])
+            yield
+
+    def join(self) -> None:
+        """Make the device's current stream wait for the shard's two
+        streams, so what follows on it is ordered after the ring and the
+        slots outlive the copies that read them."""
+        if self.compute is not None:
+            cur = torch.cuda.current_stream(self.dev)
+            cur.wait_stream(self.compute)
+            cur.wait_stream(self.copy)
+
+
+def ring_slots(block: torch.Tensor, steps: int,
+               dev: torch.device) -> RingSlots:
+    """``steps`` comm slots of ``block``'s shape and type on ``dev`` with
+    ``block`` in slot 0, and the shard's streams.  Allocate whatever else
+    the shard's streams will touch before this call: a side stream may
+    only touch memory whose allocation the ``received`` event of slot 0 is
+    ordered after."""
     with torch.cuda.device(dev) if dev.type == "cuda" \
             else contextlib.nullcontext():
-        slots = torch.empty((steps, *block.shape), dtype=torch.int32,
+        slots = torch.empty((steps, *block.shape), dtype=block.dtype,
                             device=dev)
         slots[0].copy_(block)
-        sh = _Shard(dev, slots, _PairBuffer.new(cap, dev))
+        sh = RingSlots(dev, slots)
         if dev.type == "cuda":
             sh.compute, sh.copy = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
             ready = torch.cuda.Event()
@@ -273,42 +314,17 @@ def _new_shard(block: torch.Tensor, steps: int, cap: int,
     return sh
 
 
-def _forward(src: _Shard, dst: _Shard, s: int) -> None:
-    """Copy slot s of ``src`` into slot s + 1 of ``dst`` on the copy
-    streams, after slot s was received; record "slot s + 1 received"."""
-    if dst.copy is None:
-        dst.slots[s + 1].copy_(src.slots[s])
-        return
-    with dst.on(dst.copy):
-        dst.copy.wait_event(src.received[s])
-        # A copy between two cards runs on the source card's current
-        # stream and is ordered into the destination's: make both the
-        # copy streams.
-        other = src.copy if src.dev != dst.dev else None
-        with src.on(other):
-            if other is not None:
-                other.wait_event(src.received[s])
-            dst.slots[s + 1].copy_(src.slots[s], non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record(dst.copy)
-        dst.received[s + 1] = ev
-
-
-def _compute(sh: _Shard, s: int, **kw) -> None:
-    with sh.on(sh.compute):
-        if sh.compute is not None:
-            sh.compute.wait_event(sh.received[s])
-        _step(sh.slots[0], sh.slots[s], sh.buf, **kw)
+@dataclass
+class _Shard:
+    """One shard of the Hamming ring: its pair buffer and its slots."""
+    buf: _PairBuffer
+    ring: RingSlots
 
 
 def _count(sh: _Shard) -> int:
-    """The shard's match count, read once after all its work: the device's
-    current stream first waits for the shard's two streams, so what
-    follows on it (the sort, a rerun) is ordered after the ring."""
-    if sh.compute is not None:
-        cur = torch.cuda.current_stream(sh.dev)
-        cur.wait_stream(sh.compute)
-        cur.wait_stream(sh.copy)
+    """The shard's match count, read once after all its work (the sort
+    and a rerun are ordered after the ring by :meth:`RingSlots.join`)."""
+    sh.ring.join()
     return int(sh.buf.counter.item())
 
 
@@ -348,7 +364,8 @@ def sharded_neighbor_pairs_ring(
     lanes = torch.from_numpy(np.ascontiguousarray(
         pad_to_shards(packed, d, multiple=1), np.uint32).view(np.int32))
     cap = min(CAP_START, steps * b * b)
-    shards = [_new_shard(lanes[me * b:(me + 1) * b], steps, cap, dev)
+    shards = [_Shard(buf=_PairBuffer.new(cap, dev),
+                     ring=ring_slots(lanes[me * b:(me + 1) * b], steps, dev))
               for me, dev in enumerate(mesh)]
     schedule = ring_schedule(d)
 
@@ -359,10 +376,13 @@ def sharded_neighbor_pairs_ring(
     # Step-major: every "slot received" event is recorded before the
     # iteration that waits for it.
     for me, s, q, upper_only, emits in schedule:
+        ring = shards[me].ring
         if s + 1 < steps:
-            _forward(shards[me], shards[(me - 1) % d], s)
+            ring.forward(shards[(me - 1) % d].ring, s)
         if emits:
-            _compute(shards[me], s, **step_kw(me, q, upper_only))
+            with ring.computing(s):
+                _step(ring.slots[0], ring.slots[s], shards[me].buf,
+                      **step_kw(me, q, upper_only))
 
     parts = []
     for me, sh in enumerate(shards):
@@ -370,10 +390,10 @@ def sharded_neighbor_pairs_ring(
         if n > len(sh.buf.keys):
             # Exact-capacity rerun of this shard's steps on the slots it
             # still holds, on the device's current stream.
-            sh.buf = _PairBuffer.new(n, sh.dev)
+            sh.buf = _PairBuffer.new(n, sh.ring.dev)
             for me2, s, q, upper_only, emits in schedule:
                 if me2 == me and emits:
-                    _step(sh.slots[0], sh.slots[s], sh.buf,
+                    _step(sh.ring.slots[0], sh.ring.slots[s], sh.buf,
                           **step_kw(me, q, upper_only))
         parts.append(sh.buf.keys[:n].cpu().numpy())
     # Shards emit disjoint sets of keys a * u + b in the order of their

@@ -1,4 +1,4 @@
-"""Neighbour search over the local device mesh (Hamming distance).
+"""Neighbour search over the local device mesh.
 
 Counterpart of ``humid_tpu/parallel/neighbors.py``:
 
@@ -15,9 +15,20 @@ Counterpart of ``humid_tpu/parallel/neighbors.py``:
   through the Hamming tile sweep kernel (:mod:`..ops.cuda_hamming`).  No
   data moves between shards.
 
-Both return (a, b) int64, a < b, sorted by (a, b): the contract of
-``find_neighbor_pairs``.  The edit metric on the mesh waits for the
-port of ``ops/edit.py`` (ROADMAP item 9).
+For edit distance (``metric="edit"``) the same two shapes of search run
+through the banded-Levenshtein tile scan (:func:`..ops.edit.edit_tile_pairs`,
+a PyTorch program, no hand-written kernel):
+
+* :func:`sharded_neighbor_pairs` with ``metric="edit"`` — the dense edit
+  ring: blocks of unpacked codes rotate on the ring kernel's schedule,
+  streams and events (:mod:`.cuda_ring`);
+* :func:`sharded_edit_pairs_shifted` — the (segment, shift) joins of the
+  shifted-segment search: whole equal-key groups are dealt to shards, and
+  each shard scans only the cross tiles its groups span, with a group-id
+  mask.
+
+All return (a, b) int64, a < b, sorted by (a, b): the contract of
+``find_neighbor_pairs``.
 """
 
 from __future__ import annotations
@@ -27,12 +38,18 @@ import torch
 
 from .._util import concat_aranges
 from ..ops.cuda_hamming import hamming_tile_pairs
-from ..ops.neighbors import (_dedupe_pairs, _empty_pairs, _partition_runs,
-                             _round_up, _segment_run_ids, sweep_tensors)
-from .cuda_ring import sharded_neighbor_pairs_ring
-from .mesh import data_mesh
+from ..ops.edit import _unpack, edit_tile_pairs
+from ..ops.hamming import lanes_tensor
+from ..ops.neighbors import (JoinCapExceeded, _dedupe_pairs, _empty_pairs,
+                             _matching_runs, _partition_runs, _round_up,
+                             _segment_run_ids, _sorted_run_counts,
+                             default_join_cap, shifted_joins, sweep_tensors)
+from .cuda_ring import (ring_schedule, ring_slots,
+                        sharded_neighbor_pairs_ring)
+from .mesh import data_mesh, pad_to_shards
 
-__all__ = ["sharded_neighbor_pairs", "sharded_neighbor_pairs_bucketed"]
+__all__ = ["sharded_neighbor_pairs", "sharded_neighbor_pairs_bucketed",
+           "sharded_edit_pairs_shifted"]
 
 
 class GiantRuns(ValueError):
@@ -45,21 +62,75 @@ def sharded_neighbor_pairs(
     max_dist: int,
     *,
     mesh=None,
+    tile: int = 2048,
     cap_row: int = 16,
     metric: str = "hamming",
     word_length: int | None = None,
     device: str | torch.device | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """All unordered fingerprint pairs within ``max_dist``, by the dense
-    ring over the device mesh."""
+    ring over the device mesh: the ring kernel for Hamming distance, the
+    banded-Levenshtein tile scan (tiles of at most ``min(tile, 512)``
+    rows) for ``metric="edit"``."""
     if metric == "edit":
-        raise NotImplementedError(
-            "the edit metric on the mesh is not yet ported (ROADMAP item 9)")
+        if word_length is None:
+            raise ValueError("edit metric requires word_length")
+        return _edit_ring(packed, max_dist, word_length=word_length,
+                          mesh=mesh or data_mesh(device=device), tile=tile)
     if metric != "hamming":
         raise ValueError(f"unknown metric {metric!r}")
     return sharded_neighbor_pairs_ring(
         packed, max_dist, word_length=word_length, mesh=mesh,
         cap_row=cap_row, device=device)
+
+
+def _edit_ring(packed, max_dist, *, word_length, mesh, tile):
+    """The dense edit ring.  Every shard unpacks its block of the table
+    (padded to whole tiles) on its device; the code blocks then travel as
+    the ring kernel's slots do (:func:`.cuda_ring.ring_schedule`, one slot
+    per step, forwarded on the copy stream while the step computes), and
+    at step s shard ``me`` scans its own block against block (me + s) mod
+    d.  A step's matches are compacted on the device and read as they
+    are, so the host waits once per step."""
+    d = len(mesh)
+    u = len(packed)
+    if u <= 1:
+        return _empty_pairs()
+    tile = min(tile, 512, _round_up(-(-u // d), 256))
+    padded = pad_to_shards(packed, d, multiple=tile)
+    bsh = len(padded) // d
+    steps = d // 2 + 1
+    shards = [ring_slots(
+        _unpack(lanes_tensor(padded[me * bsh:(me + 1) * bsh], dev),
+                word_length), steps, dev) for me, dev in enumerate(mesh)]
+    t = bsh // tile
+    ii, jj = np.meshgrid(np.arange(t), np.arange(t), indexing="ij")
+    all_tiles = np.stack([ii.ravel(), jj.ravel()], axis=1)
+    upper_tiles = all_tiles[all_tiles[:, 0] <= all_tiles[:, 1]]
+    keys = []
+    for me, s, q, upper_only, emits in ring_schedule(d):
+        sh = shards[me]
+        if s + 1 < steps:
+            sh.forward(shards[(me - 1) % d], s)
+        if not emits:
+            continue
+        with sh.computing(s):
+            r, c = edit_tile_pairs(
+                sh.slots[0], sh.slots[s],
+                upper_tiles if upper_only else all_tiles, tile=tile,
+                max_dist=max_dist, word_length=word_length,
+                row_valid=max(0, min(u - me * bsh, bsh)),
+                col_valid=max(0, min(u - q * bsh, bsh)),
+                upper_only=upper_only)
+            ga, gb = me * bsh + r, q * bsh + c
+            keys.append((torch.minimum(ga, gb) * u
+                         + torch.maximum(ga, gb)).cpu().numpy())
+    for sh in shards:  # the slots must outlive the copies still in flight
+        sh.join()
+    # Every unordered block pair is scanned by one shard: the keys are
+    # disjoint, and one sort gives the (a, b) order.
+    key = np.sort(np.concatenate(keys))
+    return key // u, key % u
 
 
 def _expand_runs(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
@@ -76,6 +147,13 @@ def _snake_assign(weights: np.ndarray, d: int):
     posn[rank] = np.arange(len(weights))
     lane = posn % d
     return rank, np.where((posn // d) % 2 == 0, lane, d - 1 - lane)
+
+
+def _tile_product(a0: int, a1: int, b0: int, b1: int, upper: bool):
+    """Tile pairs (i, j) with a0 <= i <= a1 and b0 <= j <= b1 (j >= i
+    only, when ``upper``)."""
+    return [(i, j) for i in range(a0, a1 + 1)
+            for j in range(max(b0, i) if upper else b0, b1 + 1)]
 
 
 def bucketed_shard_inputs(packed: np.ndarray, max_dist: int,
@@ -156,9 +234,7 @@ def bucketed_shard_inputs(packed: np.ndarray, max_dist: int,
             tp = {(int(t), int(t)) for t in np.unique(t0[t0 == t1])}
             spans = t0 != t1
             for s0, s1 in zip(t0[spans].tolist(), t1[spans].tolist()):
-                for i in range(s0, s1 + 1):
-                    for j in range(i, s1 + 1):
-                        tp.add((i, j))
+                tp.update(_tile_product(s0, s1, s0, s1, True))
         out["rows"].append(rows)
         out["ids"].append(ids)
         out["tile_pairs"].append(np.array(sorted(tp), np.int32).reshape(-1, 2))
@@ -222,6 +298,176 @@ def sharded_neighbor_pairs_bucketed(
         ga, gb = prep["gmaps"][si][a], prep["gmaps"][si][b]
         parts_a.append(np.minimum(ga, gb))
         parts_b.append(np.maximum(ga, gb))
+    if not parts_a:
+        return _empty_pairs()
+    return _dedupe_pairs(np.concatenate(parts_a), np.concatenate(parts_b))
+
+
+def shifted_shard_inputs(packed: np.ndarray, max_dist: int, word_length: int,
+                         d: int, tile: int = 512,
+                         join_cap: int | None = None):
+    """Host prep of the shifted mesh search: (segment, shift) joins ->
+    equal-key groups -> shard assignment -> per-shard scan inputs.
+
+    A group is a run of rows in the canonical sort order (its A side) and
+    the run with the same key in the shifted sort order (its B side); its
+    candidates are the cross product, or the unordered in-run pairs for a
+    shift-0 self join, whose singleton groups hold no pair and are
+    dropped.  Whole groups are dealt to shards heaviest first.
+
+    Returns ``None`` when no group holds a candidate, else a dict with
+    ``tile``, ``candidates`` and, per shard, ``rows_a``/``rows_b`` (packed
+    rows, whole tiles), ``ids_a``/``ids_b`` (group ids; padding rows carry
+    negative ids, distinct per side), ``valid_a``/``valid_b`` (real rows),
+    ``gmap_a``/``gmap_b`` (row -> unique index) and ``tile_pairs``.
+    Raises :class:`..ops.neighbors.JoinCapExceeded` when a join holds more
+    than ``join_cap`` candidates."""
+    if join_cap is None:
+        join_cap = default_join_cap()
+    w = packed.shape[1]
+    orders_a, orders_b = [], []    # per join: canonical / shifted order
+    g_join, g_self = [], []        # per group: its join, is it a self join
+    g_as, g_al, g_bs, g_bl = [], [], [], []  # run start and length per side
+    for s, dd, ka, oa, kb, ob in shifted_joins(packed, max_dist,
+                                               word_length):
+        va, ca = _sorted_run_counts(ka[oa])
+        a_starts = np.cumsum(ca) - ca
+        if dd == 0:
+            sel_a = sel_b = np.flatnonzero(ca >= 2)
+            cb, b_starts = ca, a_starts
+            need = int((ca * (ca - 1) // 2).sum())
+        else:
+            vb, cb = _sorted_run_counts(kb[ob])
+            b_starts = np.cumsum(cb) - cb
+            sel_a, sel_b = _matching_runs(va, vb)
+            need = int((ca[sel_a] * cb[sel_b]).sum())
+        if need > join_cap:
+            raise JoinCapExceeded(
+                f"sharded shifted-segment join (segment {s}, shift {dd}) "
+                f"needs {need} candidates (> join_cap={join_cap}); use the "
+                "dense edit ring")
+        if not len(sel_a):
+            continue
+        g_as.append(a_starts[sel_a])
+        g_al.append(ca[sel_a])
+        g_bs.append(b_starts[sel_b])
+        g_bl.append(cb[sel_b])
+        g_join.append(np.full(len(sel_a), len(orders_a), np.int32))
+        g_self.append(np.full(len(sel_a), dd == 0))
+        orders_a.append(oa)
+        orders_b.append(ob)
+    if not g_as:
+        return None
+    g_as, g_al, g_bs, g_bl, g_join, g_self = (
+        np.concatenate(x) for x in (g_as, g_al, g_bs, g_bl, g_join, g_self))
+
+    weights = np.where(g_self, g_al * (g_al - 1) // 2, g_al * g_bl)
+    rank, shard = _snake_assign(weights, d)
+    most_rows = int(max(np.bincount(shard, weights=g_al, minlength=d).max(),
+                        np.bincount(shard, weights=g_bl, minlength=d).max()))
+    b = min(tile, 512, _round_up(most_rows, 256))
+    out = dict(tile=b, candidates=int(weights.sum()), shards=[])
+    for si in range(d):
+        mine = rank[shard[rank] == si]
+        # Self-join groups first, in the same order on both sides: their
+        # A and B runs have equal lengths, so each sits at the same offset
+        # on both sides, element i < j implies tile(i) <= tile(j), and
+        # its upper-triangle tile pairs cover every unordered pair.
+        mine = np.concatenate([mine[g_self[mine]], mine[~g_self[mine]]])
+        al, bl = g_al[mine], g_bl[mine]
+        sides = []
+        for starts, lens, orders in ((g_as[mine], al, orders_a),
+                                     (g_bs[mine], bl, orders_b)):
+            n = int(lens.sum())
+            src = _expand_runs(starts, lens)
+            join_of = np.repeat(g_join[mine], lens)
+            idx = np.empty(n, np.int64)
+            for jn in np.unique(g_join[mine]):
+                sel = join_of == jn
+                idx[sel] = orders[jn][src[sel]]
+            n_pad = _round_up(max(n, 1), b)
+            rows = np.zeros((n_pad, w), packed.dtype)
+            rows[:n] = packed[idx]
+            gmap = np.full(n_pad, -1, np.int64)
+            gmap[:n] = idx
+            sides.append((rows, gmap, n, n_pad))
+        (rows_a, gmap_a, n_a, pad_a), (rows_b, gmap_b, n_b, pad_b) = sides
+        gids = np.arange(len(mine), dtype=np.int32)
+        ids_a = -np.arange(1, pad_a + 1, dtype=np.int32)
+        ids_b = -np.arange(pad_a + 1, pad_a + pad_b + 1, dtype=np.int32)
+        ids_a[:n_a] = np.repeat(gids, al)
+        ids_b[:n_b] = np.repeat(gids, bl)
+        # Cross tiles each group spans: (A tiles) x (B tiles); the common
+        # single-tile groups vectorized, the others in a loop.
+        offs_a, offs_b = np.cumsum(al) - al, np.cumsum(bl) - bl
+        ta0, ta1 = offs_a // b, (offs_a + al - 1) // b
+        tb0, tb1 = offs_b // b, (offs_b + bl - 1) // b
+        one = (ta0 == ta1) & (tb0 == tb1)
+        tp = set(zip(ta0[one].tolist(), tb0[one].tolist()))
+        for k in np.flatnonzero(~one):
+            tp.update(_tile_product(int(ta0[k]), int(ta1[k]), int(tb0[k]),
+                                    int(tb1[k]), bool(g_self[mine[k]])))
+        out["shards"].append(dict(
+            rows_a=rows_a, rows_b=rows_b, ids_a=ids_a, ids_b=ids_b,
+            valid_a=n_a, valid_b=n_b, gmap_a=gmap_a, gmap_b=gmap_b,
+            tile_pairs=np.array(sorted(tp), np.int64).reshape(-1, 2)))
+    return out
+
+
+def sharded_edit_pairs_shifted(
+    packed: np.ndarray,
+    max_dist: int,
+    *,
+    word_length: int,
+    mesh=None,
+    tile: int = 512,
+    join_cap: int | None = None,
+    device: str | torch.device | None = None,
+    info: dict | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Subquadratic edit-distance neighbour search on the mesh: the
+    (segment, shift) joins of the shifted-segment search
+    (:func:`..ops.neighbors.find_edit_pairs_shifted`) sharded over the
+    devices.
+
+    For every (segment, shift) the equal-key groups of (canonical keys) x
+    (shifted keys) hold all candidates; whole groups are dealt to shards
+    (heaviest first on their candidate count), and each shard runs the
+    banded-Levenshtein tile scan over only the cross tiles its groups
+    span, with a group-id mask: candidates are verified in the same pass
+    and nothing moves between shards.  Duplicates across joins, and a
+    word meeting itself under a shifted key, are removed on the host.
+
+    A join above ``join_cap`` raises
+    :class:`..ops.neighbors.JoinCapExceeded` (callers fall back to the
+    dense edit ring).  ``info["candidates"]`` receives the joins' total.
+    The shards are scanned in turn, each on its own device."""
+    mesh = mesh or data_mesh(device=device)
+    if len(packed) <= 1 or max_dist == 0:
+        return _empty_pairs()
+    prep = shifted_shard_inputs(packed, max_dist, word_length, len(mesh),
+                                tile, join_cap)
+    if info is not None:
+        info["candidates"] = prep["candidates"] if prep else 0
+    if prep is None:
+        return _empty_pairs()
+    parts_a, parts_b = [], []
+    for sh, dev in zip(prep["shards"], mesh):
+        if not len(sh["tile_pairs"]):
+            continue
+        r, c = edit_tile_pairs(
+            _unpack(lanes_tensor(sh["rows_a"], dev), word_length),
+            _unpack(lanes_tensor(sh["rows_b"], dev), word_length),
+            sh["tile_pairs"], tile=prep["tile"], max_dist=max_dist,
+            word_length=word_length, row_valid=sh["valid_a"],
+            col_valid=sh["valid_b"], upper_only=False,
+            row_ids=torch.from_numpy(sh["ids_a"]).to(dev),
+            col_ids=torch.from_numpy(sh["ids_b"]).to(dev))
+        ga = sh["gmap_a"][r.cpu().numpy()]
+        gb = sh["gmap_b"][c.cpu().numpy()]
+        keep = ga != gb  # a word can meet itself under a shifted key
+        parts_a.append(np.minimum(ga[keep], gb[keep]))
+        parts_b.append(np.maximum(ga[keep], gb[keep]))
     if not parts_a:
         return _empty_pairs()
     return _dedupe_pairs(np.concatenate(parts_a), np.concatenate(parts_b))

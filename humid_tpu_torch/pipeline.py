@@ -6,6 +6,8 @@ PyTorch/CUDA port of the reference's ``humid()`` entry point
   pass 1  read + pack words     (host, vectorized)     <- readData
   unique  sort/unique counting  (host radix sort)      <- trie leaf counts
   search  Hamming tile sweep    (CUDA kernel, torch)   <- asymmetricHamming
+          or, with edit=True, the shifted-segment search and the banded
+          Levenshtein programs (host joins, torch)     <- asymmetricLevenshtein
   cluster exact traversal       (host/C++, iterative)  <- cluster.cc
   pass 2  write outputs         (host, streaming)      <- writeFiltered/
                                                           writeAnnotated
@@ -255,13 +257,15 @@ def run(
     write_dedup: bool = True,
     write_annotated: bool = False,
     maximum: bool = False,
+    edit: bool = False,
     batch_records: int = 1 << 17,
     neighbor_opts: dict | None = None,
     cache_records: bool | None = None,
     device=None,
 ) -> PipelineResult:
     """Deduplicate ``files``; mirrors humid(wordLength, distance, ...)
-    (humid.cc:369-409 and CLI defaults humid.cc:413-429) with Hamming
+    (humid.cc:369-409 and CLI defaults humid.cc:413-429); ``edit``
+    selects Levenshtein distance (the -e flag) in place of Hamming
     distance.
 
     ``device`` (or HUMID_TPU_TORCH_DEVICE, default ``cuda``) is where the
@@ -269,8 +273,9 @@ def run(
     CUDA request without CUDA raises DeviceUnavailableError.
     ``neighbor_opts`` are extra keyword arguments of
     :func:`humid_tpu_torch.ops.find_neighbor_pairs` (``strategy``,
-    ``mesh``, ...); what the search ran (strategy, shard count, ring
-    fallbacks) is returned in ``PipelineResult.extra["engine"]``.
+    ``mesh``, ...); what the search ran (metric, strategy, shard count,
+    fallbacks, and for the shifted edit search its candidates and
+    verifier) is returned in ``PipelineResult.extra["engine"]``.
     """
     if not files:
         raise InputError("at least one FastQ file required")
@@ -360,11 +365,15 @@ def run(
     res.counts = counts
 
     # --- neighbour search (humid.cc:113-158) ---
-    t = log.start("Calculating neighbours using Hamming distance")
+    if edit:
+        t = log.start("Calculating neighbours using Levenshtein distance")
+    else:
+        t = log.start("Calculating neighbours using Hamming distance")
     engine = res.extra["engine"] = {}
-    pa, pb = find_neighbor_pairs(uniq, distance, word_length=word_length,
-                                 device=dev, info=engine,
-                                 **(neighbor_opts or {}))
+    pa, pb = find_neighbor_pairs(uniq, distance,
+                                 metric="edit" if edit else "hamming",
+                                 word_length=word_length, device=dev,
+                                 info=engine, **(neighbor_opts or {}))
     indptr, indices = pairs_to_csr(pa, pb, res.unique)
     res.degree = np.diff(indptr)
     log.end(t)

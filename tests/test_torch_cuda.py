@@ -1,8 +1,8 @@
 """Tests of humid_tpu_torch that need a CUDA card (``cuda`` marker): the
 hand-written Hamming sweep and ring kernels against their plain PyTorch
-versions on the card, the neighbour engines (the multi-stream ring
-included) on the card against the CPU, and the CLI on the card against
-baseline/humid_ref.
+versions on the card, the banded-Levenshtein programs and the neighbour
+engines of both metrics (the multi-stream rings included) on the card
+against the CPU, and the CLI on the card against baseline/humid_ref.
 
 They skip where torch.cuda.is_available() is False.  This file imports no
 jax, so it also runs where JAX is not installed:
@@ -24,6 +24,7 @@ import torch
 
 from humid_tpu_torch import words as W
 from humid_tpu_torch.ops import cuda_hamming as K
+from humid_tpu_torch.ops import edit as E
 from humid_tpu_torch.ops import neighbors as N
 from humid_tpu_torch.ops import unique_words
 from humid_tpu_torch import parallel as P
@@ -365,6 +366,125 @@ def test_engines_on_cuda_match_cpu(strategy, cuda_device):
     np.testing.assert_array_equal(got[1], want[1])
 
 
+def _edited_words(rng, n, length, m, pool):
+    """Pool words with substitutions and shifts (indels at both ends)."""
+    base = rng.integers(0, 4, (pool, length), dtype=np.uint8)
+    codes = base[rng.integers(0, pool, n)]
+    sub = np.flatnonzero(rng.random(n) < 0.4)
+    codes[sub, rng.integers(0, length, len(sub))] = rng.integers(
+        0, 4, len(sub), dtype=np.uint8)
+    for d in range(1, m + 1):
+        rows = np.flatnonzero(rng.random(n) < 0.2)
+        codes[rows, d:] = codes[rows, :length - d]
+        codes[rows, :d] = rng.integers(0, 4, (len(rows), d), dtype=np.uint8)
+    return codes
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("length", [18, 24, 33])
+def test_edit_programs_on_cuda_match_cpu(length, m, cuda_device):
+    """The DP on the card against the same functions on the CPU: the
+    block form (plain and batched), the pairwise form and edit_block."""
+    rng = np.random.default_rng(100 * m + length)
+    codes = _edited_words(rng, 900, length, m, pool=40)
+    a = torch.from_numpy(codes[:400].astype(np.int32))
+    b = torch.from_numpy(codes[400:].astype(np.int32))
+    want = E._banded_levenshtein(a, b, m, length)
+    got = E._banded_levenshtein(a.to(cuda_device), b.to(cuda_device), m,
+                                length)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert int(want.min()) == 0 and int(want.max()) == m + 1
+    a3, b3 = a.view(2, 200, length), b[:400].view(2, 200, length)
+    assert torch.equal(
+        E._banded_levenshtein(a3.to(cuda_device), b3.to(cuda_device), m,
+                              length).cpu(),
+        E._banded_levenshtein(a3, b3, m, length))
+    assert torch.equal(
+        E._banded_levenshtein_pairs(a.to(cuda_device),
+                                    b[:400].to(cuda_device), m, length).cpu(),
+        E._banded_levenshtein_pairs(a, b[:400], m, length))
+    lanes = torch.from_numpy(W.pack_words(codes).view(np.int32))
+    on_card = lanes.to(cuda_device)
+    assert torch.equal(E._unpack(on_card, length).cpu(),
+                       E._unpack(lanes, length))
+    for g, w_ in zip(E.edit_block(on_card[:500], on_card[300:], 0, 300, m,
+                                  1 << 14, length),
+                     E.edit_block(lanes[:500], lanes[300:], 0, 300, m,
+                                  1 << 14, length)):
+        assert torch.equal(g.cpu(), w_)
+
+
+def test_edit_pairs_verify_on_cuda_waits_once(cuda_device, monkeypatch):
+    """Several batches, and no host synchronisation between the table's
+    upload and the one wait after the last batch: every synchronising
+    call in between raises under the sync debug mode."""
+    rng = np.random.default_rng(8)
+    packed = W.pack_words(_edited_words(rng, 5000, 24, 2, pool=300))
+    a = rng.integers(0, 5000, 40_000).astype(np.int64)
+    b = rng.integers(0, 5000, 40_000).astype(np.int64)
+    want = E.edit_pairs_verify(packed, a, b, 2, 24, device="cpu")
+    assert 0 < len(want[0]) < len(a)
+    E.edit_pairs_verify(packed, a[:100], b[:100], 2, 24, device=cuda_device)
+    waits = []
+    upload, wait = E.lanes_tensor, E._wait
+
+    def armed_upload(*args):  # the table's upload is a blocking copy
+        lanes = upload(*args)
+        torch.cuda.set_sync_debug_mode("error")
+        return lanes
+
+    def counted_wait(dev):
+        waits.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        wait(dev)
+
+    monkeypatch.setattr(E, "lanes_tensor", armed_upload)
+    monkeypatch.setattr(E, "_wait", counted_wait)
+    try:
+        got = E.edit_pairs_verify(packed, a, b, 2, 24, batch=1 << 13,
+                                  device=cuda_device)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(waits) == 1
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("strategy", ["dense", "runs", "sharded"])
+def test_edit_engines_on_cuda_match_cpu(strategy, cuda_device):
+    rng = np.random.default_rng(79)
+    uniq, _, _, _ = unique_words(
+        W.pack_words(_edited_words(rng, 6000, 24, 2, pool=700)),
+        want_inverse=False)
+    assert len(uniq) > 2048
+    want = N.find_neighbor_pairs(uniq, 2, metric="edit", word_length=24,
+                                 strategy="dense", device="cpu")
+    assert len(want[0]) > 0
+    got = N.find_neighbor_pairs(uniq, 2, metric="edit", word_length=24,
+                                strategy=strategy, device=cuda_device,
+                                mesh=P.data_mesh(3, cuda_device))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_edit_ring_on_cuda_matches_cpu(d, cuda_device):
+    """The dense edit ring on the ring kernel's streams and events: d
+    shards spread over the cards there are."""
+    rng = np.random.default_rng(80)
+    uniq, _, _, _ = unique_words(
+        W.pack_words(_edited_words(rng, 3000, 33, 2, pool=300)),
+        want_inverse=False)
+    want = N.find_neighbor_pairs(uniq, 2, metric="edit", word_length=33,
+                                 strategy="dense", device="cpu")
+    assert len(want[0]) > 0
+    for _ in range(2):
+        got = P.sharded_neighbor_pairs(uniq, 2, metric="edit", word_length=33,
+                                       mesh=P.data_mesh(d, cuda_device))
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
 @pytest.fixture(scope="module")
 def humid_ref(tmp_path_factory):
     gxx = shutil.which("g++")
@@ -387,8 +507,11 @@ def _read(path):
 @pytest.mark.parametrize("n_files,umi,extra,gen_kw", [
     (1, "none", [], {}), (2, "underscore", ["-m", "2"], {}),
     (1, "none", ["-n", "80"], {"read_len": 90}),
-    (2, "underscore", ["-x", "-m", "3"], {"ragged": True})],
-    ids=["single", "paired_m2", "n80", "max_m3_ragged"])
+    (2, "underscore", ["-x", "-m", "3"], {"ragged": True}),
+    (1, "none", ["-e"], {}), (2, "underscore", ["-e", "-m", "2"], {}),
+    (1, "none", ["-e", "-x"], {"ragged": True})],
+    ids=["single", "paired_m2", "n80", "max_m3_ragged", "edit", "edit_m2",
+         "edit_max_ragged"])
 def test_cli_on_cuda_matches_humid_ref(n_files, umi, extra, gen_kw,
                                        cuda_device, humid_ref, tmp_path,
                                        monkeypatch):
@@ -404,7 +527,7 @@ def test_cli_on_cuda_matches_humid_ref(n_files, umi, extra, gen_kw,
     launches = K.LAUNCHES
     assert main(["-d", str(tmp_path / "port"), "-s", "-a", "-l", os.devnull,
                  *extra, *files]) == 0
-    assert K.LAUNCHES > launches
+    assert "-e" in extra or K.LAUNCHES > launches  # -e runs no kernel
     names = sorted(os.listdir(tmp_path / "ref"))
     assert names == sorted(os.listdir(tmp_path / "port"))
     for name in names:

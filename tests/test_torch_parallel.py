@@ -22,6 +22,17 @@ from humid_tpu_torch.ops import unique_words
 from humid_tpu_torch.parallel import cuda_ring as R
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tables here are tiny, and several test processes share the
+    machine's cores: with a full thread pool in each, every small CPU op
+    waits for threads that are not scheduled.  One thread per op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _dataset(rng, n, length, pool=6):
     """The generator of tests/test_parallel.py."""
     base = rng.integers(0, 4, size=(pool, length)).astype(np.uint8)
@@ -136,7 +147,8 @@ def test_strategy_dispatch(strategy):
                                 runs_threshold=16, device="cpu",
                                 mesh=_cpu_mesh(3), info=info)
     _same(got, want)
-    assert info == {"strategy": strategy, "shards": 3, "ring_fallbacks": 0}
+    assert info == {"metric": "hamming", "strategy": strategy,
+                    "shards": 3, "ring_fallbacks": 0}
 
 
 def test_sharded_below_threshold_takes_ring(monkeypatch):
@@ -149,11 +161,188 @@ def test_sharded_below_threshold_takes_ring(monkeypatch):
                                 device="cpu", mesh=_cpu_mesh(2)), want)
 
 
-def test_sharded_edit_not_yet_ported():
+def _edit_table(rng, n, length, m, pool=25):
+    """Pool words with substitutions and shifts (indels at both ends)."""
+    base = rng.integers(0, 4, (pool, length)).astype(np.uint8)
+    codes = base[rng.integers(0, pool, n)].copy()
+    for r in range(n):
+        op = int(rng.integers(0, 3))
+        if op == 1:
+            codes[r, int(rng.integers(0, length))] = rng.integers(0, 4)
+        elif op == 2:
+            d = int(rng.integers(1, m + 1))
+            codes[r, d:] = codes[r, :length - d].copy()
+            codes[r, :d] = rng.integers(0, 4, d)
+    return _uniq(codes)
+
+
+@pytest.fixture(scope="module")
+def edit_case():
+    """A table with its dense edit pairs by the JAX package and by the
+    port (which must agree)."""
+    uniq = _edit_table(np.random.default_rng(61), 400, 24, 1)
+    want = JN.find_neighbor_pairs(uniq, 1, metric="edit", word_length=24,
+                                  strategy="dense")
+    assert len(want[0]) > 0
+    _same(N.find_neighbor_pairs(uniq, 1, metric="edit", word_length=24,
+                                strategy="dense", device="cpu"), want)
+    return uniq, want
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 3, 4])
+def test_edit_ring_matches_dense(n_dev, edit_case):
+    uniq, want = edit_case
+    _same(P.sharded_neighbor_pairs(uniq, 1, metric="edit", word_length=24,
+                                   mesh=_cpu_mesh(n_dev)), want)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_edit_ring_matches_reference_ring(n_dev):
+    uniq = _edit_table(np.random.default_rng(62), 300, 18, 1)
+    want = JP.sharded_neighbor_pairs(uniq, 1, metric="edit", word_length=18,
+                                     mesh=JP.data_mesh(n_dev), cap_row=4)
+    assert len(want[0]) > 0
+    _same(P.sharded_neighbor_pairs(uniq, 1, metric="edit", word_length=18,
+                                   mesh=_cpu_mesh(n_dev)), want)
+
+
+def test_edit_mesh_searches_on_three_lane_words():
+    """L = 33 (three lanes, the last one half empty), m = 2: the ring on
+    3 shards and the shifted mesh search on 2."""
+    uniq = _edit_table(np.random.default_rng(65), 300, 33, 2)
+    want = JN.find_neighbor_pairs(uniq, 2, metric="edit", word_length=33,
+                                  strategy="dense")
+    assert len(want[0]) > 0
+    _same(P.sharded_neighbor_pairs(uniq, 2, metric="edit", word_length=33,
+                                   mesh=_cpu_mesh(3)), want)
+    _same(P.sharded_edit_pairs_shifted(uniq, 2, word_length=33,
+                                       mesh=_cpu_mesh(2)), want)
+
+
+def test_edit_ring_with_several_tiles_per_block():
+    """Blocks of two tiles, the last one ragged: every step scans a grid
+    of tile pairs and masks the padding by index."""
+    uniq = _edit_table(np.random.default_rng(63), 1000, 18, 1, pool=300)
+    assert len(uniq) > 2 * 256
+    want = N.find_neighbor_pairs(uniq, 1, metric="edit", word_length=18,
+                                 strategy="dense", device="cpu")
+    assert len(want[0]) > 0
+    _same(P.sharded_neighbor_pairs(uniq, 1, metric="edit", word_length=18,
+                                   mesh=_cpu_mesh(2), tile=256), want)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_edit_pairs_shifted_matches_dense(n_dev, edit_case):
+    uniq, want = edit_case
+    info = {}
+    _same(P.sharded_edit_pairs_shifted(uniq, 1, word_length=24,
+                                       mesh=_cpu_mesh(n_dev), info=info),
+          want)
+    assert info["candidates"] >= len(want[0])
+
+
+def test_sharded_edit_pairs_shifted_groups_that_span_tiles():
+    """One template with substitutions in its tail: most words share
+    their first segment, so that group spans several 256-row tiles (a
+    self-join group, scanned by its upper-triangle tile pairs)."""
+    rng = np.random.default_rng(64)
+    codes = np.tile(rng.integers(0, 4, 16).astype(np.uint8), (1500, 1))
+    for _ in range(3):
+        codes[np.arange(1500), 6 + rng.integers(0, 10, 1500)] = (
+            rng.integers(0, 4, 1500))
+    uniq = _uniq(codes)
+    assert len(uniq) > 600
+    want = N.find_neighbor_pairs(uniq, 2, metric="edit", word_length=16,
+                                 strategy="dense", device="cpu")
+    prep = P.neighbors.shifted_shard_inputs(uniq, 2, 16, 3, tile=256)
+    assert prep["tile"] == 256
+    assert max(len(sh["tile_pairs"]) for sh in prep["shards"]) > 4
+    for sh in prep["shards"]:  # padding ids never meet across the sides
+        assert not set(sh["ids_a"][sh["valid_a"]:]) & set(
+            sh["ids_b"][sh["valid_b"]:])
+    _same(P.sharded_edit_pairs_shifted(uniq, 2, word_length=16,
+                                       mesh=_cpu_mesh(3), tile=256), want)
+
+
+def test_sharded_edit_word_meets_itself_under_a_shifted_key():
+    """A periodic word equals itself one base further on: the shifted
+    joins pair it with itself, and that pair must not come out."""
+    codes = np.zeros((4, 16), np.uint8)
+    codes[1, 15] = 1
+    codes[2, 0] = 2
+    codes[3] = 3
+    uniq = _uniq(codes)
+    want = N.find_neighbor_pairs(uniq, 1, metric="edit", word_length=16,
+                                 strategy="dense", device="cpu")
+    assert len(want[0]) > 0
+    got = P.sharded_edit_pairs_shifted(uniq, 1, word_length=16,
+                                       mesh=_cpu_mesh(2))
+    _same(got, want)
+    assert (got[0] < got[1]).all()
+    _same(N.find_neighbor_pairs(uniq, 1, metric="edit", word_length=16,
+                                strategy="runs", device="cpu"), want)
+
+
+def test_sharded_edit_dispatch(edit_case, monkeypatch):
+    """``sharded`` + edit: the shifted mesh search above runs_threshold,
+    the dense edit ring below it."""
+    uniq, want = edit_case
+    info = {}
+    _same(N.find_neighbor_pairs(uniq, 1, metric="edit", word_length=24,
+                                strategy="sharded", runs_threshold=16,
+                                device="cpu", mesh=_cpu_mesh(3), info=info),
+          want)
+    assert info["metric"] == "edit" and info["strategy"] == "sharded"
+    assert info["shards"] == 3 and info["join_cap_fallbacks"] == 0
+    assert info["candidates"] > 0
+    monkeypatch.setattr(P, "sharded_edit_pairs_shifted", None)
+    info = {}
+    _same(N.find_neighbor_pairs(uniq, 1, metric="edit", word_length=24,
+                                strategy="sharded", device="cpu",
+                                mesh=_cpu_mesh(2), info=info), want)
+    assert info == {"metric": "edit", "strategy": "sharded", "shards": 2,
+                    "ring_fallbacks": 0}
+
+
+def test_sharded_edit_degenerate_table_falls_back_to_ring(monkeypatch):
+    """Every word shares its first segment: the shifted mesh search
+    exceeds join_cap and the search completes through the dense ring."""
+    rng = np.random.default_rng(42)
+    codes = np.empty((600, 18), np.uint8)
+    codes[:, :9] = rng.integers(0, 4, 9).astype(np.uint8)
+    codes[:, 9:] = rng.integers(0, 4, (600, 9))
+    uniq = _uniq(codes)
+    want = JN.find_neighbor_pairs(uniq, 1, metric="edit", word_length=18,
+                                  strategy="dense")
+    with pytest.raises(N.JoinCapExceeded, match="join_cap"):
+        P.sharded_edit_pairs_shifted(uniq, 1, word_length=18, join_cap=64,
+                                     mesh=_cpu_mesh(2))
+    ring_calls = []
+    ring = P.sharded_neighbor_pairs
+    monkeypatch.setattr(P, "sharded_neighbor_pairs",
+                        lambda *a, **k: ring_calls.append(k) or ring(*a, **k))
+    info = {}
+    _same(N.find_neighbor_pairs(uniq, 1, metric="edit", word_length=18,
+                                strategy="sharded", runs_threshold=256,
+                                join_cap=64, device="cpu",
+                                mesh=_cpu_mesh(2), info=info), want)
+    assert len(ring_calls) == 1 and ring_calls[0]["metric"] == "edit"
+    assert info["join_cap_fallbacks"] == 1
+
+
+def test_sharded_edit_rejects_bad_requests():
     uniq = _uniq(_dataset(np.random.default_rng(1), 50, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        P.sharded_neighbor_pairs(uniq, 1, metric="edit", word_length=16,
+    with pytest.raises(ValueError, match="word_length"):
+        P.sharded_neighbor_pairs(uniq, 1, metric="edit", mesh=_cpu_mesh(2))
+    with pytest.raises(ValueError, match="unknown metric"):
+        P.sharded_neighbor_pairs(uniq, 1, metric="jaccard", word_length=16,
                                  mesh=_cpu_mesh(2))
+    a, b = P.sharded_neighbor_pairs(uniq[:1], 1, metric="edit",
+                                    word_length=16, mesh=_cpu_mesh(2))
+    assert len(a) == 0 and a.dtype == np.int64
+    a, b = P.sharded_edit_pairs_shifted(uniq, 0, word_length=16,
+                                        mesh=_cpu_mesh(2))
+    assert len(a) == 0 and b.dtype == np.int64
 
 
 def test_environment_variables(monkeypatch):
@@ -169,11 +358,12 @@ def test_environment_variables(monkeypatch):
     assert P.data_mesh() == (torch.device("cpu"),) * 5
     info = {}
     _same(N.find_neighbor_pairs(uniq, 1, word_length=24, info=info), want)
-    assert info == {"strategy": "ring", "shards": 5, "ring_fallbacks": 0}
+    assert info == {"metric": "hamming", "strategy": "ring", "shards": 5,
+                    "ring_fallbacks": 0}
     info = {}
     N.find_neighbor_pairs(uniq, 1, word_length=24, strategy="dense",
                           info=info)
-    assert info == {"strategy": "dense"}
+    assert info == {"metric": "hamming", "strategy": "dense"}
 
 
 def test_data_mesh():
@@ -209,7 +399,8 @@ def test_forced_ring_above_cap_goes_dense(monkeypatch):
     _same(N.find_neighbor_pairs(uniq, 1, word_length=24, strategy="ring",
                                 device="cpu", mesh=_cpu_mesh(2), info=info),
           want)
-    assert info == {"strategy": "ring", "shards": 2, "ring_fallbacks": 1}
+    assert info == {"metric": "hamming", "strategy": "ring", "shards": 2,
+                    "ring_fallbacks": 1}
 
 
 def test_one_unique_word_reports_its_own_decision():
@@ -223,7 +414,7 @@ def test_one_unique_word_reports_its_own_decision():
     a, b = N.find_neighbor_pairs(uniq[:1], 1, word_length=24, device="cpu",
                                  info=info)
     assert len(a) == 0 and len(b) == 0
-    assert info == {"strategy": "dense"}
+    assert info == {"metric": "hamming", "strategy": "dense"}
 
 
 @pytest.mark.parametrize("d", range(1, 10))
@@ -239,6 +430,28 @@ def test_ring_schedule_covers_every_block_pair_once(d):
             key = (min(me, q), max(me, q))
             seen[key] = seen.get(key, 0) + 1
     assert seen == {(i, j): 1 for i in range(d) for j in range(i, d)}
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.int32, (5, 2)),
+                                         (torch.int32, (4, 33))],
+                         ids=["lanes", "codes"])
+def test_ring_slots_carry_blocks_around_the_ring(dtype, shape):
+    """ring_slots is the part both rings share: after the schedule's
+    forwards, slot s of shard ``me`` holds block (me + s) % d, whatever
+    the block's shape (lane blocks of the Hamming ring, code blocks of
+    the edit ring)."""
+    d, steps = 4, 3
+    cpu = torch.device("cpu")
+    blocks = [torch.full(shape, 10 + me, dtype=dtype) for me in range(d)]
+    shards = [R.ring_slots(blk, steps, cpu) for blk in blocks]
+    for me, s, q, _, _ in R.ring_schedule(d):
+        if s + 1 < steps:
+            shards[me].forward(shards[(me - 1) % d], s)
+        with shards[me].computing(s):
+            assert torch.equal(shards[me].slots[s], blocks[q])
+    for sh in shards:
+        sh.join()
+        assert sh.slots.shape == (steps, *shape) and sh.compute is None
 
 
 @pytest.mark.parametrize("u,d", [(601, 4), (7, 3), (3, 8), (2, 5)])

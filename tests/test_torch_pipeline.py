@@ -1,7 +1,8 @@
 """End-to-end tests of the port's CLI (python -m humid_tpu_torch) on the
 CPU: byte-identical outputs to the independent C++ baseline
-(baseline/humid_ref) on every Hamming-distance golden case of
-test_golden.py, and to the JAX package's CLI on three of them.
+(baseline/humid_ref) on every golden case of test_golden.py (Hamming and
+edit distance) and on its 20k-read edit case, and to the JAX package's
+CLI on four of them.
 
 Datasets are made from fixed seeds and fed to every implementation.
 Outputs are bytes, so every comparison is exact equality (the log after
@@ -25,11 +26,23 @@ from test_golden import CASES, _read  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The golden cases without edit distance (-e is not yet ported).
 HAMMING_CASES = [c for c in CASES if "-e" not in c[4]]
 HAMMING_IDS = ["single", "paired_umi", "colon_gz", "threefile", "m2", "max",
                "m0", "m3", "n16", "n80", "n0", "ragged_n", "unequal",
                "word_gt_read", "max_m2_ragged"]
+EDIT_CASES = [c for c in CASES if "-e" in c[4]]
+EDIT_IDS = ["edit", "edit_max_ragged", "edit_m2"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tables here are tiny, and several test processes share the
+    machine's cores: with a full thread pool in each, every small CPU op
+    waits for threads that are not scheduled.  One thread per op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +94,8 @@ def _assert_same_dirs(d1, d2):
         assert _read(d1 / name) == _read(d2 / name), name
 
 
-@pytest.mark.parametrize("case", HAMMING_CASES, ids=HAMMING_IDS)
+@pytest.mark.parametrize("case", HAMMING_CASES + EDIT_CASES,
+                         ids=HAMMING_IDS + EDIT_IDS)
 def test_cli_matches_humid_ref(case, humid_ref, cpu_device, tmp_path):
     files, extra = _dataset(case, tmp_path)
     _run_ref(humid_ref, tmp_path / "ref", ["-s", "-a", *extra], files)
@@ -89,8 +103,9 @@ def test_cli_matches_humid_ref(case, humid_ref, cpu_device, tmp_path):
     _assert_same_dirs(tmp_path / "ref", tmp_path / "port")
 
 
-@pytest.mark.parametrize("case", [HAMMING_CASES[i] for i in (0, 1, 5)],
-                         ids=["single", "paired_umi", "max"])
+@pytest.mark.parametrize(
+    "case", [HAMMING_CASES[i] for i in (0, 1, 5)] + EDIT_CASES[:1],
+    ids=["single", "paired_umi", "max", "edit"])
 def test_cli_matches_humid_tpu(case, cpu_device, tmp_path):
     from humid_tpu.cli import main as ref_main
 
@@ -173,8 +188,8 @@ def test_cuda_request_without_cuda_raises(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-e"], ["--coordinator", "127.0.0.1:1234"], ["--num-processes", "2"],
-    ["--process-id", "0"]], ids=["edit", "coordinator", "num_processes",
+    ["--coordinator", "127.0.0.1:1234"], ["--num-processes", "2"],
+    ["--process-id", "0"]], ids=["coordinator", "num_processes",
                                  "process_id"])
 def test_not_yet_ported_flags_exit_2(flags, tmp_path, capsys):
     from humid_tpu_torch.cli import main
@@ -183,6 +198,100 @@ def test_not_yet_ported_flags_exit_2(flags, tmp_path, capsys):
         main([*flags, "-d", str(tmp_path / "o"), str(tmp_path / "x.fq")])
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def midscale_edit(humid_ref, tmp_path_factory):
+    """The 20k-read edit case of test_golden.py (60 bp reads from the
+    benchmark recipe) and humid_ref's ``-s -e`` outputs on it."""
+    sys.path.insert(0, REPO)
+    import bench
+
+    root = tmp_path_factory.mktemp("midscale_edit")
+    fq = str(root / "edit.fastq")
+    bench.gen_dataset(fq, 20_000, read_len=60, seed=5)
+    _run_ref(humid_ref, root / "ref", ["-s", "-e"], [fq])
+    return fq, root / "ref"
+
+
+@pytest.mark.parametrize("opts,engine", [
+    ({}, {"metric": "edit", "strategy": "runs", "join_cap_fallbacks": 0}),
+    ({"strategy": "sharded", "mesh": 3},
+     {"metric": "edit", "strategy": "sharded", "shards": 3,
+      "ring_fallbacks": 0, "join_cap_fallbacks": 0}),
+    ({"strategy": "dense"}, {"metric": "edit", "strategy": "dense"}),
+], ids=["auto", "sharded", "dense"])
+def test_midscale_edit_matches_humid_ref(opts, engine, midscale_edit,
+                                         tmp_path):
+    """Above 2,048 uniques auto takes the shifted-segment search and
+    ``sharded`` the shifted mesh search; every engine writes humid_ref's
+    bytes."""
+    import humid_tpu_torch
+    from humid_tpu_torch.parallel import data_mesh
+
+    fq, ref = midscale_edit
+    if "mesh" in opts:
+        opts = {**opts, "mesh": data_mesh(opts["mesh"], "cpu")}
+    res = humid_tpu_torch.run([fq], dir_name=str(tmp_path / "port"),
+                              log_name=os.devnull, run_stats=True, edit=True,
+                              device="cpu", neighbor_opts=opts)
+    assert res.unique > 2048
+    got = dict(res.extra["engine"])
+    assert got.pop("candidates", 1) > 0
+    assert got == engine
+    assert "Calculating neighbours using Levenshtein distance" in \
+        res.extra["timings"]
+    _assert_same_dirs(ref, tmp_path / "port")
+
+
+def test_edit_and_hamming_differ_on_indels(humid_ref, tmp_path):
+    """Reads whose words have copies shifted by one base: at -m 2 the -e
+    run joins clusters that the Hamming run keeps apart, and each run
+    writes humid_ref's bytes for its own flags (a -e that computed the
+    Hamming distance would pass every equal-length m = 1 case)."""
+    import humid_tpu_torch
+
+    rng = np.random.default_rng(77)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pool = bases[rng.integers(0, 4, (300, 30))]
+    shifted = pool[::3].copy()
+    shifted[:, 1:] = pool[::3, :-1]
+    shifted[:, 0] = bases[rng.integers(0, 4, len(shifted))]
+    words = np.concatenate([pool, shifted])
+    seqs = words[rng.integers(0, len(words), 1500)]
+    fq = tmp_path / "indels.fastq"
+    with open(fq, "wb") as f:
+        for i, seq in enumerate(seqs):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq.tobytes(), b"I" * 30))
+    clusters = {}
+    for name, flags in (("hamming", []), ("edit", ["-e"])):
+        _run_ref(humid_ref, tmp_path / f"ref_{name}",
+                 ["-n", "30", "-m", "2", "-s", "-a", *flags], [str(fq)])
+        res = humid_tpu_torch.run(
+            [str(fq)], word_length=30, distance=2, edit=bool(flags),
+            dir_name=str(tmp_path / name), log_name=os.devnull,
+            run_stats=True, write_annotated=True, device="cpu")
+        assert res.extra["engine"]["metric"] == name
+        _assert_same_dirs(tmp_path / f"ref_{name}", tmp_path / name)
+        clusters[name] = res.clusters
+    assert clusters["edit"] < clusters["hamming"]
+
+
+def test_edit_log_names_levenshtein(humid_ref, cpu_device, tmp_path):
+    """The -l log of an -e run matches the reference's line for line."""
+    from humid_tpu_torch.cli import main
+
+    gen_dataset(np.random.default_rng(56), str(tmp_path), n_reads=200)
+    fq = str(tmp_path / "file0.fastq")
+    (tmp_path / "ref").mkdir()
+    subprocess.run([humid_ref, "-d", str(tmp_path / "ref"), "-e", "-l",
+                    str(tmp_path / "ref.log"), fq], check=True,
+                   capture_output=True)
+    assert main(["-d", str(tmp_path / "port"), "-e", "-l",
+                 str(tmp_path / "port.log"), fq]) == 0
+    norm = lambda p: re.sub(r"\(\d+m\d+s\)", "(XmYs)", open(p).read())
+    assert norm(tmp_path / "ref.log") == norm(tmp_path / "port.log")
+    assert "Levenshtein" in norm(tmp_path / "port.log")
 
 
 def test_mesh_strategies_write_the_same_bytes(tmp_path):
@@ -205,8 +314,9 @@ def test_mesh_strategies_write_the_same_bytes(tmp_path):
         res = humid_tpu_torch.run(
             files, dir_name=str(tmp_path / strategy), device="cpu",
             neighbor_opts={"strategy": strategy, "mesh": mesh}, **kw)
-        assert res.extra["engine"] == {"strategy": strategy, "shards": 3,
-                                       "ring_fallbacks": 0}
+        assert res.extra["engine"] == {
+            "metric": "hamming", "strategy": strategy, "shards": 3,
+            "ring_fallbacks": 0}
         _assert_same_dirs(tmp_path / "auto", tmp_path / strategy)
         _assert_same_dirs(tmp_path / "jax", tmp_path / strategy)
 
@@ -224,5 +334,6 @@ def test_cli_honours_strategy_and_shards_variables(humid_ref, cpu_device,
         cli, "run", lambda *a, **k: results.append(pipeline.run(*a, **k)))
     _run_port(tmp_path / "port", ["-s", "-a", *extra], files)
     assert [r.extra["engine"] for r in results] == [
-        {"strategy": "ring", "shards": 4, "ring_fallbacks": 0}]
+        {"metric": "hamming", "strategy": "ring", "shards": 4,
+         "ring_fallbacks": 0}]
     _assert_same_dirs(tmp_path / "ref", tmp_path / "port")
