@@ -30,12 +30,15 @@ Phases, each printing its own line; any failure exits non-zero:
 4. End to end: a 1M-read sample made by the benchmark recipe (single-end
    100 bp, dup factor 8, 30% one-substitution reads; bench.py's
    gen_dataset), run with ``-n 24 -m 1 -s -a`` on the card in process
-   through ``humid_tpu_torch.run`` (kernel launch counts reset just
-   before, read just after: at least one launch required) and once more
-   through ``python -m humid_tpu_torch`` in a subprocess; both must write
-   identical files, dedup lines == 4 x clusters and annotated lines ==
-   4 x total.  If g++ and zlib are present, baseline/humid_ref is built
-   and its outputs must be byte-identical.
+   through ``humid_tpu_torch.run`` by the default route, the one the
+   router's constants of phase 13 choose (kernel launch counts reset just
+   before, read just after; the check follows the engine that ran: an
+   engine of the tile sweep must have launched it, a fused run must not
+   have fallen back) and once more through ``python -m humid_tpu_torch``
+   in a subprocess; both must write identical files, dedup lines == 4 x
+   clusters and annotated lines == 4 x total.  If g++ and zlib are
+   present, baseline/humid_ref is built and its outputs must be
+   byte-identical.
 5. Ring kernel vs its plain version, one step, on the card (tolerance
    0): b = 16,384, w = 2, m = 1 with ``upper_only`` true and false and
    ``u`` cutting the column block in the middle; w = 3, m = 2 both ways;
@@ -89,9 +92,36 @@ Phases, each printing its own line; any failure exits non-zero:
     -a`` and with ``-e`` added; each byte-identical to
     ``baseline/humid_ref`` with the same flags, and ``-e`` must leave
     fewer clusters.
-13. One JSON line describing both kernels: launches on their end-to-end
-    runs; ``ms``, the kernel alone (phase 3's ``kernel_ms`` at the 1M-read
-    table for the tile sweep, phase 8's one step for the ring);
+13. The router's calibration (run before phase 4): ``engine_constants``
+    measured once into build/chip_smoke/engine_calib.json
+    (HUMID_TPU_TORCH_CALIB_PATH, which every later run and CLI subprocess
+    reads); the constants and the choices they make are printed.
+14. The Hamming engines against each other at sweep_1M and sweep_10M's
+    tables: host ``runs``, ``runs_device``, ``bucketed`` and ``dense``
+    give identical pair arrays (wall times printed); ``fused_probe`` on
+    1M and 10M packed reads of the benchmark recipe equals host
+    ``unique_words`` + ``runs``; a feeder that starts short grows and
+    holds every row of 10M.
+15. The device programs at e2e_1M's shape, on the inputs a fused run
+    gives them: programs A (unique counting), B (partitions), C (the base
+    sweeps, with match masks), D (-x labels), ``_runs_eval`` at the device
+    runs engine's depth and ``unique_words_device`` whole; for each the
+    kernels launched (``torch.profiler``), ms by CUDA events and the bound
+    of ``program_bound`` (bytes over the memory rate, integer operations
+    over the card's rate); for unique counting also ``torch.unique``.
+16. Every route end to end on the phase-4 file: forced fused
+    (HUMID_TPU_TORCH_FUSED=1; fails if it fell back), host ``runs``,
+    ``runs_device``, ``bucketed`` (at least one tile sweep launch) and
+    ``-x`` through the fused device labels, each byte-identical to
+    baseline/humid_ref with its flags; then a low-entropy file of 400,000
+    reads (5,000 pool sequences share 12 bases: one run of some 6,000
+    rows) by the default route, host ``runs`` and forced fused, each of
+    which must launch the tile sweep for its big run (``_big_run_pairs``)
+    and write humid_ref's bytes.  Phase seconds per route are printed.
+17. One JSON line describing both kernels: launches on their end-to-end
+    runs (the tile sweep's on phase 16's big-run path by the default
+    route); ``ms``, the kernel alone (phase 3's ``kernel_ms`` at the
+    1M-read table for the tile sweep, phase 8's one step for the ring);
     ``wrapper_ms``, the same call through its wrapper; ``plain_ms``; the
     POPC form's bound for the same work.  The edit path launches neither
     kernel and adds none.  Then the card's nvidia-smi line and the result
@@ -388,6 +418,21 @@ def _same_files(d1: str, d2: str) -> None:
             raise SmokeFailure(f"{n} differs between {d1} and {d2}")
 
 
+#: Neighbour engines that run every pair through the tile sweep K1.
+K1_ENGINES = ("dense", "bucketed", "sharded_bucketed")
+
+
+def check_launches(name: str, engine: dict, launches: int) -> None:
+    """The launch check follows the engine that ran: an engine of K1 must
+    have launched it; the runs engines and the fused route launch it only
+    for runs longer than ``run_cap`` (their device work is PyTorch ops),
+    and a fused run must not have fallen back to the host path."""
+    if engine.get("strategy") in K1_ENGINES and launches < 1:
+        raise SmokeFailure(f"{name}: engine {engine} launched no tile sweep")
+    if engine.get("fused_fallback"):
+        raise SmokeFailure(f"{name}: the fused route fell back: {engine}")
+
+
 def end_to_end_phase(n_reads: int, device: str = "cuda") -> dict:
     import humid_tpu_torch
     from humid_tpu_torch.ops import cuda_hamming
@@ -409,10 +454,11 @@ def end_to_end_phase(n_reads: int, device: str = "cuda") -> dict:
                               write_annotated=True, device=device)
     seconds = time.perf_counter() - t0
     launches = cuda_hamming.LAUNCHES
-    say(f"phase 4 run(): {seconds:.3f} s, kernel launches {launches}, "
-        f"timings {json.dumps(res.extra['timings'])}")
-    if launches < 1:
-        raise SmokeFailure("the end-to-end run launched no sweep kernel")
+    engine = res.extra["engine"]
+    say(f"phase 4 run() by the default route: {seconds:.3f} s, engine "
+        f"{json.dumps(engine)}, tile sweep launches {launches}, timings "
+        f"{json.dumps(res.extra['timings'])}")
+    check_launches("phase 4 default route", engine, launches)
 
     out_cli = os.path.join(WORK, "out_cli")
     t0 = time.perf_counter()
@@ -454,7 +500,9 @@ def end_to_end_phase(n_reads: int, device: str = "cuda") -> dict:
     say(f"phase 4 reference check: {ref_check}")
     have_ref = bool(gxx and os.path.exists("/usr/include/zlib.h"))
     return {"seconds": seconds, "cli_seconds": cli_seconds,
-            "launches": launches, "stats": st, "fastq": fq, "flags": flags,
+            "launches": launches, "engine": engine,
+            "timings": res.extra["timings"], "stats": st, "fastq": fq,
+            "flags": flags,
             "humid_ref": os.path.join(WORK, "humid_ref") if have_ref else None,
             "outs": [out_run] + ([out_ref] if have_ref else [])}
 
@@ -744,8 +792,10 @@ def mesh_end_to_end_phase(e2e: dict, device: str = "cuda") -> dict:
         if counts[strategy] < 1:
             raise SmokeFailure(f"strategy {strategy} launched no kernel of "
                                f"{mod.__name__}")
-        if engine != {"metric": "hamming", "strategy": strategy,
-                      "shards": 4, "ring_fallbacks": 0}:
+        if ({k: v for k, v in engine.items() if k != "unique"}
+                != {"metric": "hamming", "strategy": strategy, "shards": 4,
+                    "ring_fallbacks": 0}
+                or engine["unique"] not in ("host", "device")):
             raise SmokeFailure(f"unexpected engine record {engine}")
         for ref in e2e["outs"]:
             _same_files(ref, out)
@@ -1115,7 +1165,8 @@ def edit_end_to_end_phase(e2e: dict, device: str = "cuda") -> dict:
             f"{json.dumps(engine)}, timings "
             f"{json.dumps(res.extra['timings'])}")
         candidates = engine.pop("candidates", 0)
-        if engine != want or not candidates:
+        if engine.pop("unique") not in ("host", "device") \
+                or engine != want or not candidates:
             raise SmokeFailure(f"phase 12 {name}: unexpected engine record "
                                f"{res.extra['engine']}")
         if cuda_ring.LAUNCHES or cuda_hamming.LAUNCHES:
@@ -1176,7 +1227,7 @@ def edit_indel_end_to_end_phase(e2e: dict, table, length: int = 33,
             device=device)
         engine = res.extra["engine"]
         if (engine["metric"], engine["strategy"]) != (
-                name, "runs" if edit else "bucketed"):
+                name, "runs" if edit else default_hamming_engine(device)):
             raise SmokeFailure(f"phase 12 indels {name}: engine {engine}")
         clusters[name] = _stats(out)["clusters"]
         if e2e["humid_ref"]:
@@ -1195,6 +1246,317 @@ def edit_indel_end_to_end_phase(e2e: dict, table, length: int = 33,
         f"{clusters['edit']}; both runs byte-identical"
         + (" to baseline/humid_ref with the same flags" if e2e["humid_ref"]
            else " (baseline/humid_ref not run)"))
+
+
+def default_hamming_engine(device) -> str:
+    """The engine the default route takes for a Hamming table above the
+    size gate: the fused route when the router says so, else the router's
+    neighbour engine."""
+    import torch
+
+    from humid_tpu_torch import _backend as B
+
+    dev = torch.device(device)
+    return ("fused" if B.use_fused_pipeline(dev)
+            else B.pick_neighbor_engine(dev))
+
+
+def calibration_phase(device) -> dict:
+    """Phase 13 (run before phase 4, whose default route reads its result):
+    the router's calibration, once, into the scratch cache that main()
+    names in HUMID_TPU_TORCH_CALIB_PATH; the constants and the choices
+    they make."""
+    from humid_tpu_torch import _backend as B
+
+    t0 = time.perf_counter()
+    constants = B.engine_constants(device, refresh=True)
+    seconds = time.perf_counter() - t0
+    choices = {"neighbors": B.pick_neighbor_engine(device),
+               "unique_on_device": B.use_device_engine("unique", device),
+               "components_on_device": B.use_device_engine("cc", device),
+               "fused": B.use_fused_pipeline(device)}
+    say(f"phase 13: calibrated in {seconds:.3f} s; constants "
+        f"{json.dumps(constants)}; choices {json.dumps(choices)}")
+    return {"constants": constants, "choices": choices, "seconds": seconds}
+
+
+def sample_reads(n_reads: int, seed: int, length: int = 24) -> np.ndarray:
+    """[n_reads, w] packed words of an n-read sample by the benchmark recipe
+    (gen_reads' pool of n/8 sequences, 30% of reads with one substitution
+    at a uniform position of 100), first ``length`` bases, in read order."""
+    from humid_tpu_torch import words as W
+
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 4, (n_reads // 8, length), dtype=np.uint8)
+    codes = pool[rng.integers(0, len(pool), n_reads)]
+    pos = rng.integers(0, 100, n_reads)
+    hit = np.flatnonzero((rng.random(n_reads) < 0.3) & (pos < length))
+    codes[hit, pos[hit]] = rng.integers(0, 4, len(hit), dtype=np.uint8)
+    return W.pack_words(codes)
+
+
+def engines_agree_phase(device, tables,
+                        probe_reads=(1_000_000, 10_000_000)) -> dict:
+    """Phase 14: on the sweep_1M and sweep_10M tables the host runs engine,
+    the device runs engine, the bucketed tile sweep and the dense tile
+    sweep give identical pair arrays; fused_probe on 1M and 10M packed
+    reads (benchmark recipe) equals host unique_words + the runs engine;
+    a feeder that starts at an eighth of 10M rows grows and holds every
+    row."""
+    import torch
+
+    from humid_tpu_torch.ops import fused as F
+    from humid_tpu_torch.ops import neighbors as N
+    from humid_tpu_torch.ops import unique_words
+    from humid_tpu_torch.ops.hamming import lanes_tensor
+
+    out = {}
+    for name in ("bucketed_1M_reads", "bucketed_10M_reads"):
+        uniq = tables[name]
+        got, times, infos = {}, {}, {}
+        for strategy in ("runs", "runs_device", "bucketed", "dense"):
+            infos[strategy] = {}
+            got[strategy], times[strategy] = _timed(
+                lambda: N.find_neighbor_pairs(
+                    uniq, 1, word_length=24, strategy=strategy,
+                    device=device, info=infos[strategy]))
+        for strategy in ("runs_device", "bucketed", "dense"):
+            _equal_pairs(f"phase 14 {name} {strategy} vs runs",
+                         got[strategy], got["runs"])
+        out[name] = {"uniques": len(uniq), "pairs": len(got["runs"][0]),
+                     "wall_ms": times, "runs": infos["runs"],
+                     "runs_device": infos["runs_device"]}
+        say(f"phase 14 {name}: runs == runs_device == bucketed == dense "
+            f"(tolerance 0); {json.dumps(out[name])}")
+    for n_reads in probe_reads:
+        packed = sample_reads(n_reads, seed=n_reads % 1009)
+        uniq, counts, first, _ = unique_words(packed, want_inverse=False)
+        want = N.find_neighbor_pairs(uniq, 1, word_length=24,
+                                     strategy="runs", device=device)
+        (k, fc, ff, pairs), ms = _timed(
+            lambda: F.fused_probe(packed, 24, 1, device=device))
+        if k != len(uniq) or not (np.array_equal(fc, counts)
+                                  and np.array_equal(ff, first)):
+            raise SmokeFailure(f"phase 14 fused_probe {n_reads}: tables "
+                               f"differ ({k} uniques against {len(uniq)})")
+        _equal_pairs(f"phase 14 fused_probe {n_reads}", pairs, want)
+        feeder = F.DeviceFeeder(packed.shape[1], n_reads // 8,
+                                device=device)
+        cap0 = feeder.cap
+        for lo in range(0, n_reads, 1 << 17):
+            feeder.push(packed[lo:lo + (1 << 17)])
+        buf = feeder.finish()
+        if not (torch.equal(buf[:n_reads], lanes_tensor(packed, device))
+                and bool((buf[n_reads:] == -1).all())):
+            raise SmokeFailure(f"phase 14 feeder at {n_reads} rows: rows "
+                               f"differ after growth to {feeder.cap}")
+        out[f"fused_probe_{n_reads}"] = {"uniques": k, "pairs": len(pairs[0]),
+                                         "wall_ms": ms}
+        say(f"phase 14 fused_probe on {n_reads} reads == host unique_words "
+            f"+ runs; a feeder of {cap0} rows grown to {feeder.cap} holds "
+            f"every row; {json.dumps(out[f'fused_probe_{n_reads}'])}")
+    return out
+
+
+def program_bound(n_bytes: int, int_ops: int, card: dict) -> dict:
+    """Least time of a device program: the larger of ``n_bytes`` (each
+    input read once, each output written once) over 3.35e12 B/s and
+    ``int_ops`` integer operations over SMs x 64 a clock x the maximum SM
+    clock."""
+    bytes_ms = n_bytes / 3.35e12 * 1e3
+    ops_ms = int_ops / (64 * card["sms"] * card["sm_hz"]) * 1e3
+    return {"bytes": n_bytes, "int_ops": int_ops, "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def programs_phase(device, card, n_reads: int = 1_000_000) -> dict:
+    """Phase 15: each device program of the fused and device runs routes at
+    e2e_1M's shape (a 1M-read sample by the benchmark recipe, m = 1), on
+    the inputs a fused run gives it: program A (unique counting,
+    ``_unique_program`` on the feeder's buffer), B (``_fused_partitions``),
+    C (``_runs_eval`` at the fused base offsets, with the match masks),
+    D (``_fused_labels`` over them and the host's extra edges),
+    ``_runs_eval`` at the device runs engine's depth, and
+    ``unique_words_device`` whole (upload and read-back included).  For
+    each: kernels launched (``torch.profiler``), ms by CUDA events, and the
+    bound of :func:`program_bound`; for unique counting also
+    ``torch.unique(dim=0)`` on the same rows (the library call; it gives
+    no first occurrences)."""
+    import math
+
+    import torch
+
+    from humid_tpu_torch.ops import fused as F
+    from humid_tpu_torch.ops import runs_device as RD
+    from humid_tpu_torch.ops.unique import _unique_program, unique_words_device
+
+    packed = sample_reads(n_reads, seed=5)
+    n, w = packed.shape
+    feeder = F.DeviceFeeder(w, n, device=device)
+    feeder.push(packed)
+    fp = F.FusedPipeline(feeder, n, np.zeros(n, bool), word_length=24,
+                         max_dist=1, want_inverse=True, want_labels=True)
+    k = fp.unique()
+    info = {}
+    fp.neighbors(info=info)
+    buf = feeder.buf
+    u_pad = -(-k // 32) * 32
+    table = fp._uniq[:u_pad]
+    seg_np = RD.segment_lane_masks(24, 2, w)
+    seg = torch.from_numpy(seg_np.view(np.int32)).to(device)
+    d_base = 2
+    ea, eb = (torch.from_numpy(x).to(device) for x in fp._extra)
+    rd_info = {}
+    RD.runs_device_pairs(fp.table(), 1, word_length=24, device=device,
+                         info=rd_info)
+    d_rd = rd_info["d_max"]
+    log2 = lambda x: max(1, math.ceil(math.log2(max(x, 2))))
+    plane = -(-w // 2)
+    sweep_ops = lambda nd: 2 * nd * u_pad * (5 * w + plane + 3)
+    programs = {
+        "A_unique": (lambda: _unique_program(buf, n, True),
+                     2 * buf.numel() * 4 + 3 * n * 8,
+                     n * log2(n) * plane),
+        "B_partitions": (lambda: F._fused_partitions(
+            table, k, seg_np, d_cap=8, run_cap=2048),
+            table.numel() * 4 + u_pad * 8 + 2 * u_pad // 8 + 12 * 8,
+            u_pad * log2(u_pad)),
+        "C_sweep_base": (lambda: RD._runs_eval(
+            table, fp._orders, seg, k, 1, d_hi=d_base, with_matches=True),
+            table.numel() * 4 + u_pad * 8 + 2 * d_base * u_pad * (1 + 1 / 8),
+            sweep_ops(d_base)),
+        "D_labels": (lambda: F._fused_labels(fp._matches, fp._orders, ea, eb),
+                     fp._matches.numel() + u_pad * 8 + 16 * len(ea)
+                     + u_pad * 8,
+                     6 * fp._matches.numel()),
+        f"runs_eval_d{d_rd}": (lambda: RD._runs_eval(
+            table, fp._orders, seg, k, 1, d_hi=d_rd),
+            table.numel() * 4 + u_pad * 8 + 2 * d_rd * u_pad // 8,
+            sweep_ops(d_rd)),
+        "unique_words_device": (lambda: unique_words_device(
+            packed, False, device=device),
+            2 * n * w * 4 + 2 * k * 8, n * log2(n) * plane),
+    }
+    lanes = buf[:n]
+    library = {"A_unique": lambda: torch.unique(
+        lanes, dim=0, return_inverse=True, return_counts=True),
+        "unique_words_device": lambda: torch.unique(
+            torch.from_numpy(packed.view(np.int32)).to(device), dim=0,
+            return_counts=True)}
+    out = {}
+    for name, (fn, n_bytes, ops) in programs.items():
+        rec = {"launches": kernels_launched(fn, name),
+               "ms": time_cuda(fn, 10), **program_bound(int(n_bytes),
+                                                        int(ops), card)}
+        rec["library_ms"] = (time_cuda(library[name], 5) if name in library
+                             else None)
+        out[name] = rec
+        say(f"phase 15 program {name}: {json.dumps(rec)}")
+    out["shape"] = {"reads": n, "uniques": k, "u_pad": u_pad,
+                    "fused": info, "runs_device_d_max": d_rd,
+                    "extra_edges": len(ea)}
+    say(f"phase 15 shape: {json.dumps(out['shape'])}")
+    return out
+
+
+def write_low_entropy_reads(path: str, n_reads: int, seed: int) -> None:
+    """Phase 4's recipe, with 5,000 pool sequences (of n_reads / 8) sharing
+    their first 12 bases: at -n 24 -m 1 their words form one run of some
+    6,000 rows in the first pigeonhole partition, past ``run_cap``."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pool = bases[rng.integers(0, 4, size=(n_reads // 8, 100))]
+    pool[:5000, :12] = pool[0, :12]
+    seqs = pool[rng.integers(0, len(pool), n_reads)].copy()
+    mut = np.flatnonzero(rng.random(n_reads) < 0.3)
+    seqs[mut, rng.integers(0, 100, len(mut))] = bases[
+        rng.integers(0, 4, len(mut))]
+    write_fastq(path, seqs)
+
+
+def routes_phase(e2e: dict, device: str = "cuda",
+                 low_entropy_reads: int = 400_000) -> dict:
+    """Phase 16: the phase-4 file through every route of run() (forced
+    fused, host runs, device runs, bucketed, and -x through the fused
+    device labels), then a low-entropy file whose big runs take
+    _big_run_pairs through the tile sweep (default route, host runs,
+    forced fused; at least one tile sweep launch each).  Every output
+    byte-identical to baseline/humid_ref with the same flags (phase 4's
+    outputs where humid_ref is missing)."""
+    import humid_tpu_torch
+    from humid_tpu_torch.ops import cuda_hamming
+
+    def ref_outputs(fq, name, flags):
+        if not e2e["humid_ref"]:
+            return None
+        out_ref = os.path.join(WORK, f"out_ref_{name}")
+        os.makedirs(out_ref)
+        subprocess.run([e2e["humid_ref"], *flags, "-d", out_ref, "-l",
+                        os.devnull, fq], check=True, capture_output=True)
+        return out_ref
+
+    def one(name, fq, refs, *, env=None, opts=None, maximum=False,
+            want=None):
+        saved = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        cuda_hamming.LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            res = humid_tpu_torch.run(
+                [fq], word_length=24, distance=1, maximum=maximum,
+                dir_name=os.path.join(WORK, f"out_route_{name}"),
+                log_name=os.devnull, run_stats=True, write_annotated=True,
+                device=device, neighbor_opts=opts)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        seconds = time.perf_counter() - t0
+        launches = cuda_hamming.LAUNCHES
+        engine = res.extra["engine"]
+        check_launches(f"phase 16 {name}", engine, launches)
+        if want and any(engine.get(k) != v for k, v in want.items()):
+            raise SmokeFailure(f"phase 16 {name}: engine {engine}, wanted "
+                               f"{want}")
+        for ref in refs:
+            if ref:
+                _same_files(ref, os.path.join(WORK, f"out_route_{name}"))
+        rec = {"seconds": seconds, "launches": launches, "engine": engine,
+               "timings": res.extra["timings"]}
+        say(f"phase 16 {name}: {json.dumps(rec)}")
+        return rec
+
+    fq = e2e["fastq"]
+    refs = e2e["outs"]
+    fused = {"HUMID_TPU_TORCH_FUSED": "1"}
+    out = {"default": {"seconds": e2e["seconds"], "engine": e2e["engine"],
+                       "launches": e2e["launches"],
+                       "timings": e2e["timings"]}}
+    out["fused"] = one("fused", fq, refs, env=fused,
+                       want={"strategy": "fused", "fused_fallback": 0})
+    for strategy in ("runs", "runs_device", "bucketed"):
+        out[strategy] = one(strategy, fq, refs, opts={"strategy": strategy},
+                            want={"strategy": strategy})
+    ref_x = ref_outputs(fq, "x", [*e2e["flags"], "-x"])
+    out["fused_x"] = one("fused_x", fq, [ref_x], env=fused, maximum=True,
+                         want={"strategy": "fused", "fused_fallback": 0,
+                               "components": "fused"})
+    low = os.path.join(WORK, "low_entropy.fastq")
+    write_low_entropy_reads(low, low_entropy_reads, seed=16)
+    ref_low = ref_outputs(low, "low", e2e["flags"])
+    for name, env, opts in (("big_runs_default", None, None),
+                            ("big_runs_runs", None, {"strategy": "runs"}),
+                            ("big_runs_fused", fused, None)):
+        rec = out[name] = one(name, low, [ref_low], env=env, opts=opts)
+        if rec["launches"] < 1 or rec["engine"].get("dense_fallbacks"):
+            raise SmokeFailure(f"phase 16 {name}: the big runs did not go "
+                               f"through the tile sweep: {rec}")
+    say("phase 16: every route byte-identical to "
+        + ("baseline/humid_ref" if e2e["humid_ref"] else "phase 4's outputs"))
+    return out
 
 
 def main() -> int:
@@ -1226,6 +1588,14 @@ def main() -> int:
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
+    # The router's constants go to a scratch cache of this run (phase 13),
+    # which every later run() and CLI subprocess reads.
+    os.environ["HUMID_TPU_TORCH_CALIB_PATH"] = os.path.join(
+        WORK, "engine_calib.json")
+    for var in ("HUMID_TPU_TORCH_FUSED", "HUMID_TPU_TORCH_DEVICE_ENGINE",
+                "HUMID_TPU_TORCH_CALIBRATION", "HUMID_TPU_TORCH_STRATEGY",
+                "HUMID_TPU_TORCH_UNIQUE", "HUMID_TPU_TORCH_SHARDS"):
+        os.environ.pop(var, None)
     kernels = ("hamming_sweep", "ring_sweep")
     for name in kernels:  # build from this checkout's sources
         _build.library_path(name).unlink(missing_ok=True)
@@ -1246,6 +1616,7 @@ def main() -> int:
 
     device = torch.device("cuda")
     sweeps, tables = sweep_phase(device, card_info)
+    calibration_phase(device)
     e2e = end_to_end_phase(1_000_000)
     uniq_1m = tables["bucketed_1M_reads"]
     ring_err = ring_step_phase(device, uniq_1m, tables["dense_L33_m2"])
@@ -1261,6 +1632,9 @@ def main() -> int:
                        card_info)
     edit_end_to_end_phase(e2e)
     edit_indel_end_to_end_phase(e2e, table_indels)
+    engines_agree_phase(device, tables)
+    programs_phase(device, card_info)
+    routes = routes_phase(e2e)
 
     main_shape = sweeps["bucketed_1M_reads"]
     no_library = None  # no single PyTorch call computes either sweep
@@ -1268,7 +1642,9 @@ def main() -> int:
         "name": "hamming_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/hamming_sweep.cu",
         "replaces": "humid_tpu/ops/pallas_hamming.py:60",
-        "launches": e2e["launches"],
+        # On the big-run path: the default route on the low-entropy file
+        # (phase 16), where _big_run_pairs takes its giant runs.
+        "launches": routes["big_runs_default"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in sweeps.values()),
         # ms: the kernel alone, for both kernels; wrapper_ms: through the
         # wrapper (allocation, read-back and sort included).

@@ -34,3 +34,28 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise DeviceUnavailableError(
             f"device {str(dev)!r} is not supported (use cuda or cpu)")
     return dev
+
+
+def to_host(*tensors):
+    """Numpy copies of ``tensors`` (all on one device) with one wait: on a
+    CUDA device every copy goes to pinned memory without blocking and the
+    current stream is synchronised once after the last."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.numpy() for t in tensors]
+    dev = tensors[0].device
+    hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+             for t in tensors]
+    for h, t in zip(hosts, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(dev).synchronize()
+    return [h.numpy() for h in hosts]
+
+
+def to_device(array, device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``; to a CUDA device through
+    pinned memory without blocking the host (the copy is ordered on the
+    current stream)."""
+    t = torch.from_numpy(array)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -1,3 +1,5 @@
-from .exact import cluster_exact, ClusterResult
+from .exact import cluster_exact, cluster_max_from_components, ClusterResult
+from .labelprop import connected_components_device, renumber_components
 
-__all__ = ["cluster_exact", "ClusterResult"]
+__all__ = ["cluster_exact", "cluster_max_from_components", "ClusterResult",
+           "connected_components_device", "renumber_components"]

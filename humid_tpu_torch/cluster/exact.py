@@ -71,6 +71,67 @@ def cluster_exact(
     return _cluster_directional_py(counts, indptr, indices)
 
 
+def cluster_max_from_components(
+    counts: np.ndarray,
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    cc_labels: np.ndarray,
+) -> ClusterResult:
+    """Finish maximum (-x) clustering from connected-component labels
+    (smallest node index per component, e.g. from
+    :func:`.labelprop.connected_components_device`), equal to
+    :func:`cluster_exact`'s DFS (cluster.cc:72-80).
+
+    Membership, ids in seed order, ``size`` and ``maxCount`` do not depend
+    on the visit order.  ``maxLeaf`` does: the reference's strict ``>``
+    keeps the first max-count leaf in DFS pre-order, which is ambiguous
+    only when several members share the max count.  Those components are
+    walked again with the same DFS, stopping at the first max-count node;
+    no other component touches the adjacency."""
+    from .labelprop import renumber_components
+
+    counts = np.ascontiguousarray(counts, dtype=np.int64)
+    u = len(counts)
+    cid, k, seeds = renumber_components(cc_labels)
+    if k == 0:
+        z = np.zeros(0, np.int64)
+        return ClusterResult(np.zeros(0, np.int64), z, z, z)
+    g = cid - 1
+    size = np.bincount(g, weights=counts, minlength=k).astype(np.int64)
+    max_count = np.zeros(k, np.int64)
+    np.maximum.at(max_count, g, counts)
+    # The first max in index order: the DFS's first when the max is
+    # unique in its component.
+    is_max = counts == max_count[g]
+    n_max = np.bincount(g[is_max], minlength=k)
+    max_leaf = np.full(k, u, np.int64)
+    np.minimum.at(max_leaf, g[is_max], np.flatnonzero(is_max))
+    for comp in np.flatnonzero(n_max > 1).tolist():
+        mc = int(max_count[comp])
+        seed = int(seeds[comp])
+        if counts[seed] == mc:  # pre-order starts at the seed
+            max_leaf[comp] = seed
+            continue
+        # Pre-order DFS over ascending adjacency, stopping at the first
+        # max-count node (the strict > never replaces it).
+        visited = {seed}
+        stack = [(seed, int(indptr[seed]))]
+        while stack:
+            node, ptr = stack[-1]
+            if ptr == indptr[node + 1]:
+                stack.pop()
+                continue
+            stack[-1] = (node, ptr + 1)
+            nb = int(indices[ptr])
+            if nb not in visited:
+                visited.add(nb)
+                if counts[nb] == mc:
+                    max_leaf[comp] = nb
+                    break
+                stack.append((nb, int(indptr[nb])))
+    return ClusterResult(cid, max_leaf, max_count, size)
+
+
 def _cluster_max_py(counts, indptr, indices) -> ClusterResult:
     u = len(counts)
     labels = np.zeros(u, dtype=np.int64)

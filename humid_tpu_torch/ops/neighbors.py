@@ -3,14 +3,20 @@
 Replaces the reference's per-word fuzzy trie traversal
 (``findHammingNeighbours``/``findEditNeighbours``, humid.cc:113-158).
 
-Hamming distance: sweeps over tiles of the packed unique-word table, all
-of which run through one kernel, the Hamming tile sweep
-(:mod:`.cuda_hamming`):
+Hamming distance, by the pigeonhole principle where it applies (a pair
+within distance m agrees exactly on one of m + 1 contiguous segments):
 
-* ``dense`` — every upper-triangular tile pair of the table;
-* ``bucketed`` — pigeonhole partitions: the ``max_dist + 1`` permuted
-  copies of the table are stacked, and only the tile pairs that hold a
-  run of words sharing a segment are swept.
+* ``dense`` — every upper-triangular tile pair of the table through the
+  Hamming tile sweep (:mod:`.cuda_hamming`);
+* ``bucketed`` — the ``max_dist + 1`` permuted copies of the table are
+  stacked, and only the tile pairs that hold a run of words sharing a
+  segment are swept by the same kernel;
+* ``runs`` — the equal-segment runs of each partition are enumerated on
+  the host and their pairs filtered by XOR + popcount
+  (:func:`find_neighbor_pairs_runs`); runs longer than ``run_cap`` go to
+  the tile sweep with its run-id mask (:func:`_big_run_pairs`);
+* ``runs_device`` — the same runs evaluated on the device by offset-shift
+  sweeps (:mod:`.runs_device`).
 
 Edit distance (``metric="edit"``, the ``-e`` flag), through the banded
 Levenshtein programs of :mod:`.edit`:
@@ -52,8 +58,10 @@ from .unique import _stable_argsort_u64, _unique_u64
 
 try:
     from .._hostops import merge_join_pairs as _merge_join_native
+    from .._hostops import run_pairs as _run_pairs_native
+    from .._hostops import run_pairs_hamming as _run_pairs_hamming_native
 except ImportError:  # pragma: no cover - extension not built
-    _merge_join_native = None
+    _merge_join_native = _run_pairs_native = _run_pairs_hamming_native = None
 
 STRATEGY_ENV_VAR = "HUMID_TPU_TORCH_STRATEGY"
 
@@ -74,18 +82,21 @@ def _empty_pairs():
 
 def choose_engine(u: int, max_dist: int, word_length: int | None,
                   runs_threshold: int = 1 << 11,
-                  metric: str = "hamming") -> str:
+                  metric: str = "hamming",
+                  device: str | torch.device | None = None) -> str:
     """The ``auto`` strategy: when the segment split applies and the table
-    is large, ``bucketed`` for Hamming distance and ``runs`` (the
-    shifted-segment search) for edit distance; else ``dense``.
-
-    The JAX package routes Hamming auto through a calibrated engine
-    choice and off-chip picks its host ``runs`` engine; the calibrated
-    router and the host runs engine come to the port later (ROADMAP.md).
-    Every engine returns the same pair set, so the choice changes no
-    output byte."""
+    is large, ``runs`` (the shifted-segment search) for edit distance and
+    for Hamming distance the calibrated router's pick on ``device``
+    (:func:`humid_tpu_torch._backend.pick_neighbor_engine`: host ``runs``
+    on the CPU, else the engine measured fastest on this card and host);
+    else ``dense``.  Every engine returns the same pair set, so the choice
+    changes no output byte."""
     if max_dist >= 1 and word_length is not None and u > runs_threshold:
-        return "runs" if metric == "edit" else "bucketed"
+        if metric == "edit":
+            return "runs"
+        from .._backend import pick_neighbor_engine
+
+        return pick_neighbor_engine(resolve_device(device))
     return "dense"
 
 
@@ -146,7 +157,8 @@ def find_neighbor_pairs(
         flag; needs ``word_length``).
       word_length: bases per word (needed by every engine but the dense
         Hamming sweep).
-      strategy: "dense"; "bucketed" (Hamming only); "runs" (edit only: the
+      strategy: "dense"; "bucketed", "runs_device" (Hamming only);
+        "runs" (Hamming: the host pigeonhole runs engine; edit: the
         shifted-segment search); "auto" (:func:`choose_engine`); or a
         search over the local device mesh (:mod:`..parallel`): "ring"
         (the Hamming ring kernel; the reference calls it "pallas_ring"),
@@ -172,7 +184,10 @@ def find_neighbor_pairs(
         ring's cap, else 0), and for the shifted edit searches
         "candidates" (pairs the joins produced) and "join_cap_fallbacks"
         (1 if the search went to the dense engine because a join exceeded
-        ``join_cap``, else 0).
+        ``join_cap``, else 0); for the pigeonhole runs engines
+        "candidates" (in-run pairs), "dense_fallbacks" (1 if giant runs
+        sent the search to the dense sweep, else 0) and, on the device,
+        "d_max" (the sweep depth).
 
     Returns:
       (a, b): int64 arrays with a < b, sorted by (a, b).
@@ -185,19 +200,19 @@ def find_neighbor_pairs(
     env_strategy = os.environ.get(STRATEGY_ENV_VAR)
     if env_strategy and strategy == "auto":
         strategy = env_strategy
+    dev = resolve_device(device)
     auto_chosen = strategy == "auto"
     if auto_chosen:
         strategy = choose_engine(u, max_dist, word_length, runs_threshold,
-                                 metric)
+                                 metric, dev)
     info = {} if info is None else info
     info.update(metric=metric, strategy=strategy)
-    if metric == "edit" and strategy == "bucketed":
+    if metric == "edit" and strategy in ("bucketed", "runs_device"):
         raise ValueError(
-            "bucketed strategy supports only the hamming metric "
+            f"{strategy} strategy supports only the hamming metric "
             "(pigeonhole segments do not bound edit distance)")
     if u <= 1:
         return _empty_pairs()
-    dev = resolve_device(device)
     if strategy in ("ring", "sharded", "sharded_bucketed"):
         return _mesh_search(packed, max_dist, strategy, metric=metric,
                             word_length=word_length, tile=tile,
@@ -219,6 +234,17 @@ def find_neighbor_pairs(
     if strategy == "bucketed":
         return find_neighbor_pairs_bucketed(
             packed, max_dist, word_length=word_length, tile=tile, device=dev)
+    if strategy in ("runs", "runs_device"):
+        if word_length is None:
+            raise ValueError(f"{strategy} strategy requires word_length")
+        if strategy == "runs":
+            return find_neighbor_pairs_runs(
+                packed, max_dist, word_length=word_length, tile=tile,
+                device=dev, info=info)
+        from .runs_device import runs_device_pairs
+
+        return runs_device_pairs(packed, max_dist, word_length=word_length,
+                                 tile=tile, device=dev, info=info)
     if strategy != "dense":
         raise ValueError(f"unknown strategy {strategy!r} for the {metric} "
                          f"metric")
@@ -370,6 +396,236 @@ def _dedupe_pairs(a: np.ndarray, b: np.ndarray):
         sk = sk[keep]
     return ((sk >> np.uint64(32)).astype(np.int64),
             (sk & np.uint64(0xFFFFFFFF)).astype(np.int64))
+
+
+def _identity_runs(key: np.ndarray):
+    """Run structure of an already sorted key array: partition 0's key is
+    the word prefix and the unique table ascends, so its stable order is
+    the identity and one compare pass replaces the sort.  The order is
+    checked (a permuted table would lose pairs silently); an unsorted key
+    takes :func:`_partition_runs`."""
+    n = len(key)
+    if not np.all(key[1:] >= key[:-1]):
+        return _partition_runs(key)
+    new_run = np.empty(n, bool)
+    new_run[0] = True
+    np.not_equal(key[1:], key[:-1], out=new_run[1:])
+    run_start = np.flatnonzero(new_run)
+    run_len = np.diff(np.append(run_start, n))
+    return np.arange(n, dtype=np.int64), run_start, run_len
+
+
+def _run_pairs_fallback(order, starts, lens):
+    """In-run pairs without the host extension: every unordered pair of
+    each run (sorted positions ``starts[r]`` .. ``+ lens[r]`` of
+    ``order``) as (min, max) of their ``order`` entries, run by run in
+    the row-major order of ``np.triu_indices`` (vectorized: each position
+    pairs with the ones after it in its run)."""
+    within = concat_aranges(lens)
+    pos = np.repeat(np.asarray(starts, np.int64), lens) + within
+    n_after = np.repeat(np.asarray(lens, np.int64), lens) - 1 - within
+    left = np.repeat(pos, n_after)
+    right = left + 1 + concat_aranges(n_after)
+    a, b = order[left], order[right]
+    return np.minimum(a, b), np.maximum(a, b)
+
+
+def enumerate_run_pairs(packed, word64, order, starts, lens, max_dist):
+    """In-run candidate enumeration + Hamming filter for the given
+    equal-key runs: the fused native pass (enumerate, XOR, popcount) when
+    the word fits 64 bits and the extension is built, the native
+    enumeration and :func:`_filter_hamming_host` otherwise, numpy without
+    the extension.  Returns (a, b, n_candidates), a < b, neither sorted
+    nor deduplicated.  Shared by the host runs engine, the device runs
+    engine's mid runs and the fused route, so their ladders agree."""
+    t_cand = int((lens * (lens - 1) // 2).sum())
+    if t_cand == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, 0
+    ss = np.ascontiguousarray(starts, np.int64)
+    sl = np.ascontiguousarray(lens, np.int64)
+    order = np.ascontiguousarray(order, np.int64)
+    if word64 is not None and _run_pairs_hamming_native is not None:
+        oa = np.empty(t_cand, np.int64)
+        ob = np.empty(t_cand, np.int64)
+        n_out = _run_pairs_hamming_native(word64, order, ss, sl,
+                                          int(max_dist), oa, ob)
+        return oa[:n_out].copy(), ob[:n_out].copy(), t_cand
+    if _run_pairs_native is not None:
+        oa = np.empty(t_cand, np.int64)
+        ob = np.empty(t_cand, np.int64)
+        n_out = _run_pairs_native(order, ss, sl, oa, ob)
+        ca, cb = oa[:n_out], ob[:n_out]
+    else:
+        ca, cb = _run_pairs_fallback(order, ss, sl)
+    a, b = _filter_hamming_host(packed, ca, cb, max_dist)
+    return a, b, t_cand
+
+
+def _popcount_u32(x: np.ndarray) -> np.ndarray:
+    """SWAR population count of uint32 values (wrapping uint32 multiply)."""
+    x = x - ((x >> np.uint32(1)) & np.uint32(0x55555555))
+    x = (x & np.uint32(0x33333333)) + ((x >> np.uint32(2))
+                                       & np.uint32(0x33333333))
+    x = (x + (x >> np.uint32(4))) & np.uint32(0x0F0F0F0F)
+    return (x * np.uint32(0x01010101)) >> np.uint32(24)
+
+
+def _filter_hamming_host(packed, a, b, max_dist):
+    """Keep the candidate pairs within ``max_dist`` differing bases
+    (vectorized XOR, 2-bit collapse and popcount per lane)."""
+    z = packed[a] ^ packed[b]
+    m = (z | (z >> np.uint32(1))) & np.uint32(0x55555555)
+    d = _popcount_u32(m).sum(axis=1, dtype=np.int64)
+    keep = d <= max_dist
+    return a[keep], b[keep]
+
+
+def _combined_u64(packed):
+    """[U, w <= 2] uint32 lanes -> contiguous uint64 words (the bit layout
+    of :func:`_segment_run_ids`)."""
+    word64 = packed[:, 0].astype(np.uint64) << np.uint64(32)
+    if packed.shape[1] == 2:
+        word64 |= packed[:, 1].astype(np.uint64)
+    return np.ascontiguousarray(word64)
+
+
+def find_neighbor_pairs_runs(
+    packed: np.ndarray,
+    max_dist: int,
+    *,
+    word_length: int,
+    run_cap: int = 2048,
+    tile: int = 2048,
+    device: str | torch.device | None = None,
+    info: dict | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Pigeonhole neighbour search by sorted-run enumeration on the host.
+
+    The guarantee of :func:`find_neighbor_pairs_bucketed` (a pair within
+    Hamming distance m agrees exactly on one of m + 1 contiguous
+    segments), but the equal-segment runs the sort produces are
+    enumerated directly instead of sweeping the tiles around them: every
+    in-run pair is a candidate, kept by XOR + popcount
+    (:func:`enumerate_run_pairs`).  Expected candidates per partition are
+    the real pairs plus ~U^2 / 4^(L/(m+1)) random collisions.
+
+    Runs longer than ``run_cap`` (degenerate buckets, e.g. low-entropy
+    reads) go to the Hamming tile sweep on ``device`` with its run-id
+    mask, over only the tiles they span (:func:`_big_run_pairs`); when
+    such runs cover more rows than the table has, one dense sweep finds
+    every pair once instead.  ``info`` receives "candidates" and
+    "dense_fallbacks".
+
+    Replaces the reference's per-word fuzzy trie walk
+    (findHammingNeighbours, humid.cc:113-130).
+    """
+    info = {} if info is None else info
+    u, w = packed.shape
+    if u <= 1 or max_dist == 0:
+        info.update(candidates=0, dense_fallbacks=0)
+        return _empty_pairs()
+    n_seg = max_dist + 1
+    keys = _segment_run_ids(packed, word_length, n_seg)
+    word64 = _combined_u64(packed) if w <= 2 else None
+    parts_a: list = [None] * n_seg
+    parts_b: list = [None] * n_seg
+    big_parts: list[tuple] = []
+    big_rows = [0] * n_seg
+    cand_stat = [0] * n_seg
+
+    def _one_partition(p):
+        # Partition 0 is in sorted order already (prefix key of the
+        # ascending unique table): no sort.
+        order, run_start, run_len = (
+            _identity_runs(keys[0]) if p == 0 else _partition_runs(keys[p]))
+        small = (run_len >= 2) & (run_len <= run_cap)
+        parts_a[p], parts_b[p], cand_stat[p] = enumerate_run_pairs(
+            packed, word64, order, run_start[small], run_len[small],
+            max_dist)
+        big = run_len > run_cap
+        if big.any():
+            big_rows[p] = int(run_len[big].sum())
+            big_parts.append((p, order, run_start[big], run_len[big]))
+
+    # The native sort is parallel over every core already, so partitions
+    # run one after another with it; the numpy fallback is single-threaded
+    # per partition, and there a pool overlaps them.
+    if _unique_u64 is None and n_seg > 1:
+        with ThreadPoolExecutor(max_workers=n_seg) as ex:
+            list(ex.map(_one_partition, range(n_seg)))
+    else:
+        for p in range(n_seg):
+            _one_partition(p)
+    info["candidates"] = sum(cand_stat)
+    info["dense_fallbacks"] = int(sum(big_rows) > u)
+    if sum(big_rows) > u:
+        # Giant runs in several partitions (one template with scattered
+        # substitutions): the stacked scan would meet every pair once per
+        # partition; one dense sweep meets it once.
+        return find_neighbor_pairs(packed, max_dist, word_length=word_length,
+                                   tile=tile, strategy="dense", device=device)
+    if big_parts:
+        big_parts.sort(key=lambda part: part[0])
+        ba, bb = _big_run_pairs(packed, big_parts, max_dist, tile=tile,
+                                device=device)
+        parts_a.append(ba)
+        parts_b.append(bb)
+    a = np.concatenate(parts_a)
+    b = np.concatenate(parts_b)
+    if not len(a):
+        return _empty_pairs()
+    return _dedupe_pairs(a, b)
+
+
+def _big_run_pairs(packed, big_parts, max_dist, *, tile: int = 2048,
+                   device=None):
+    """The Hamming tile sweep (kernel K1) restricted to oversized runs.
+
+    For each (partition, order, big run starts, big run lengths) the
+    partition's permuted rows are stacked; only rows inside big runs get
+    a matchable (non-negative) run id, every other row a distinct
+    negative one, and only the tile pairs those runs span are swept, with
+    the sweep's run-id mask (``hamming_tile_pairs(..., ids=)``).  Returns
+    (a, b) unique-word indices, a < b, unsorted."""
+    u, w = packed.shape
+    b = min(tile, _round_up(u, 256))
+    u_pad = _round_up(u, b)
+    t = u_pad // b
+    datas, rids, pair_lists, orders = [], [], [], []
+    for pi, (_p, order, rs, rl) in enumerate(big_parts):
+        dperm = np.zeros((u_pad, w), np.uint32)
+        dperm[:u] = packed[order]
+        rid = -np.arange(1, u_pad + 1, dtype=np.int64) - pi * (u_pad + 1)
+        pairs = set()
+        for k, (s, l) in enumerate(zip(rs.tolist(), rl.tolist())):
+            rid[s:s + l] = k + pi * (u_pad + 1)
+            t0, t1 = s // b, (s + l - 1) // b
+            for i in range(t0, t1 + 1):
+                for j in range(i, t1 + 1):
+                    pairs.add((i, j))
+        datas.append(dperm)
+        rids.append(rid.astype(np.int32))
+        pair_lists.append(np.array(sorted(pairs), np.int32).reshape(-1, 2)
+                          + np.int32(pi * t))
+        orders.append(order)
+    dev = resolve_device(device)
+    lanes, tp = sweep_tensors(np.concatenate(datas), np.concatenate(
+        pair_lists), dev)
+    ids = torch.from_numpy(np.concatenate(rids)).to(dev)
+    pa, pb = hamming_tile_pairs(lanes, tp, tile=b, part_stride=u_pad,
+                                part_valid=u, max_dist=max_dist, ids=ids)
+    pa, pb = pa.cpu().numpy(), pb.cpu().numpy()
+    # Stacked permuted positions -> unique-word indices, through each
+    # partition's own order.
+    ga = np.empty(len(pa), np.int64)
+    gb = np.empty(len(pb), np.int64)
+    for pi, order in enumerate(orders):
+        sel = (pa // u_pad) == pi
+        ga[sel] = order[pa[sel] % u_pad]
+        sel = (pb // u_pad) == pi
+        gb[sel] = order[pb[sel] % u_pad]
+    return np.minimum(ga, gb), np.maximum(ga, gb)
 
 
 def bucketed_inputs(packed: np.ndarray, max_dist: int, word_length: int,
@@ -552,22 +808,17 @@ def _merge_join_numpy(ka_sorted: np.ndarray, oa: np.ndarray,
     va, ca = _sorted_run_counts(ka_sorted)
     sa = np.cumsum(ca) - ca
     if self_join:
-        # Position p of a run of c rows pairs with the c - 1 - p rows
-        # after it.
-        within = concat_aranges(ca)
-        n_after = np.repeat(ca, ca) - 1 - within
-        left = np.repeat(np.arange(len(oa)), n_after)
-        right = left + 1 + concat_aranges(n_after)
-    else:
-        vb, cb = _sorted_run_counts(kb_sorted)
-        sb = np.cumsum(cb) - cb
-        ia, ib = _matching_runs(va, vb)
-        # Every row of a matched A run pairs with the whole B run.
-        rows_a = np.repeat(sa[ia], ca[ia]) + concat_aranges(ca[ia])
-        n_b = np.repeat(cb[ib], ca[ia])
-        left = np.repeat(rows_a, n_b)
-        right = np.repeat(np.repeat(sb[ib], ca[ia]), n_b) \
-            + concat_aranges(n_b)
+        # The in-run pairs of the runs engine's fallback; ``oa`` is a
+        # permutation, so no row meets itself.
+        return _run_pairs_fallback(oa, sa, ca)
+    vb, cb = _sorted_run_counts(kb_sorted)
+    sb = np.cumsum(cb) - cb
+    ia, ib = _matching_runs(va, vb)
+    # Every row of a matched A run pairs with the whole B run.
+    rows_a = np.repeat(sa[ia], ca[ia]) + concat_aranges(ca[ia])
+    n_b = np.repeat(cb[ib], ca[ia])
+    left = np.repeat(rows_a, n_b)
+    right = np.repeat(np.repeat(sb[ib], ca[ia]), n_b) + concat_aranges(n_b)
     a, b = oa[left], ob[right]
     keep = a != b
     a, b = a[keep], b[keep]

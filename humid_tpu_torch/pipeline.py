@@ -4,13 +4,21 @@ PyTorch/CUDA port of the reference's ``humid()`` entry point
 (humid.cc:369-409), on the main single-device route:
 
   pass 1  read + pack words     (host, vectorized)     <- readData
-  unique  sort/unique counting  (host radix sort)      <- trie leaf counts
-  search  Hamming tile sweep    (CUDA kernel, torch)   <- asymmetricHamming
+  unique  sort/unique counting  (host radix sort or    <- trie leaf counts
+                                device sort, routed)
+  search  pigeonhole runs engines, Hamming tile sweep  <- asymmetricHamming
+          (CUDA kernel), routed by measured constants;
           or, with edit=True, the shifted-segment search and the banded
           Levenshtein programs (host joins, torch)     <- asymmetricLevenshtein
   cluster exact traversal       (host/C++, iterative)  <- cluster.cc
+          (-x: device components where routed)
   pass 2  write outputs         (host, streaming)      <- writeFiltered/
                                                           writeAnnotated
+
+or, for unique counting and the search, the fused device-resident route
+(:mod:`.ops.fused`): the packed reads go to the device during pass 1, and
+unique counting, the partition sorts, the in-run sweeps and the -x labels
+run against that one copy.
 
 The output contract (duplicate sets, annotations, statistics files, file
 naming, log phases) is bit-compatible with the reference binary.
@@ -30,13 +38,16 @@ import numpy as np
 from . import words as W
 from ._device import resolve_device
 from ._util import avail_bytes, tune_malloc
-from .cluster import cluster_exact
+from .cluster import (cluster_exact, cluster_max_from_components,
+                      connected_components_device)
 from .errors import InputError
 from .io import (FastqWriter, build_records, build_records_annotated,
                  make_file_names, peek_first_record, read_tuples)
 from .io.reader import is_gzip_file
 from .io.writer import _ann_buffer, _build_output, compress_member
 from .ops import find_neighbor_pairs, pairs_to_csr, unique_words
+from .ops.neighbors import STRATEGY_ENV_VAR
+from .ops.unique import UNIQUE_ENV_VAR
 from .phaselog import PhaseLog
 from .stats import write_statistics
 
@@ -190,14 +201,45 @@ def _span_stitch(part, acc: dict) -> None:
     acc["base"] += total
 
 
+#: Uniques above which -x asks the router for device components.
+DEVICE_COMPONENTS_MIN = 1 << 14
+
+
+def cluster_dispatch(counts, indptr, indices, *, maximum: bool, pairs=None,
+                     device=None, info: dict | None = None):
+    """Cluster by the routed engine.  ``-x`` (maximum) on a table of more
+    than DEVICE_COMPONENTS_MIN uniques, where the router says so for
+    ``device``, finds connected components on the device (label
+    propagation) and finishes ids, sizes, maxCount and maxLeaf on the
+    host (:func:`cluster_max_from_components`, equal to the host walk);
+    everything else takes the host walk.  ``info`` receives "components"
+    ("device" or "host") for -x."""
+    if maximum:
+        from ._backend import use_device_engine
+
+        on_device = (pairs is not None and device is not None
+                     and len(counts) > DEVICE_COMPONENTS_MIN
+                     and use_device_engine("cc", device))
+        if info is not None:
+            info["components"] = "device" if on_device else "host"
+        if on_device:
+            cc = connected_components_device(pairs[0], pairs[1], len(counts),
+                                             device=device)
+            return cluster_max_from_components(counts, indptr, indices, cc)
+    return cluster_exact(counts, indptr, indices, maximum=maximum)
+
+
 def _pass1(files, nt_to_take, header_umi_size, batch_records,
            cache: list | None = None, pack_workers: int = 3,
-           span_accs: list | None = None):
+           span_accs: list | None = None, feeder=None):
     """Stream all files in lockstep; return (packed [N,W], filtered [N]).
     When ``cache`` is a list, parsed batch tuples are appended to it for
     reuse by the output pass.  When ``span_accs`` is given (one
     accumulator per file), absolute record spans are collected for the
-    span-based dedup writer.
+    span-based dedup writer.  When ``feeder`` (an
+    :class:`.ops.fused.DeviceFeeder`) is given, the usable packed rows go
+    to the device during framing instead of collecting on the host, and
+    the packed return value is None.
 
     Packing (UMI gather + base encode, all GIL-releasing C calls) runs on
     a small thread pool so it overlaps the reader thread's
@@ -222,7 +264,11 @@ def _pass1(files, nt_to_take, header_umi_size, batch_records,
         # FIFO drain == submission order, so span stitching sees batches
         # in stream order.
         packed, filtered, spans = fut.result()
-        packed_parts.append(packed)
+        if feeder is not None:
+            # The feeder holds usable rows only (usable-index space).
+            feeder.push(packed[~filtered] if filtered.any() else packed)
+        else:
+            packed_parts.append(packed)
         filt_parts.append(filtered)
         if spans is not None:
             for part, acc in zip(spans, span_accs):
@@ -239,6 +285,12 @@ def _pass1(files, nt_to_take, header_umi_size, batch_records,
                 _drain(inflight.popleft())
         while inflight:
             _drain(inflight.popleft())
+    if feeder is not None:
+        # The last flush can also find the budget short: raise here, inside
+        # the caller's fallback.
+        feeder.finish()
+        return None, (np.concatenate(filt_parts) if filt_parts
+                      else np.zeros(0, bool))
     if not filt_parts:
         wl = header_umi_size + sum(nt_to_take)
         return (np.zeros((0, W.num_lanes(wl)), np.uint32),
@@ -273,9 +325,17 @@ def run(
     CUDA request without CUDA raises DeviceUnavailableError.
     ``neighbor_opts`` are extra keyword arguments of
     :func:`humid_tpu_torch.ops.find_neighbor_pairs` (``strategy``,
-    ``mesh``, ...); what the search ran (metric, strategy, shard count,
-    fallbacks, and for the shifted edit search its candidates and
-    verifier) is returned in ``PipelineResult.extra["engine"]``.
+    ``mesh``, ...).  What ran is returned in
+    ``PipelineResult.extra["engine"]``: "unique" ("host", "device" or
+    "fused"), what the search ran (metric, strategy, shard count,
+    candidates, fallbacks), for -x "components", and "fused_fallback"
+    (1 when the fused route was chosen but the reads did not fit it)
+    where the fused route was chosen.
+
+    The fused route (:mod:`.ops.fused`) is decided before pass 1, by
+    :func:`humid_tpu_torch._backend.use_fused_pipeline`, for Hamming runs
+    with ``distance >= 1`` and no ``neighbor_opts``,
+    $HUMID_TPU_TORCH_STRATEGY or $HUMID_TPU_TORCH_UNIQUE.
     """
     if not files:
         raise InputError("at least one FastQ file required")
@@ -329,51 +389,111 @@ def run(
         span_accs = [_span_acc_new(budget, with_hdr=write_annotated)
                      for _ in files]
 
-    t = log.start("Reading data")
-    packed, filtered = _pass1(files, nt_to_take, header_umi_size,
-                              batch_records, cache, span_accs=span_accs)
-    res.total = int(len(packed))
-    res.usable = int((~filtered).sum())
-    log.end(t)
+    engine = res.extra["engine"] = {}
+    wl = header_umi_size + sum(nt_to_take)
+    w = W.num_lanes(wl)
+    feeder = None
+    if (not edit and distance >= 1 and not neighbor_opts
+            and not os.environ.get(STRATEGY_ENV_VAR)
+            and not os.environ.get(UNIQUE_ENV_VAR)):
+        from ._backend import use_fused_pipeline
 
-    # --- exact duplicate counting (replaces trie leaf counts) ---
-    t_uni = time.time()
-    any_filtered = bool(filtered.any())
-    usable_packed = packed[~filtered] if any_filtered else packed
-    # The row->unique inverse (and with it the per-read cluster-id
-    # vector) is only needed for annotated output.
-    uniq, counts, first_occ_usable, inverse = unique_words(
-        usable_packed, want_inverse=write_annotated)
-    # first_occ indexes usable rows; convert to global read indices.
-    if any_filtered:
-        usable_to_read = np.flatnonzero(~filtered)
-        first_occ = (usable_to_read[first_occ_usable]
-                     if len(first_occ_usable) else first_occ_usable)
+        if use_fused_pipeline(dev):
+            from .ops.fused import DeviceFeeder, fused_fits
+
+            # ~200 bytes a plain FastQ record under-estimates the rows on
+            # purpose (no device memory held that the run never uses); the
+            # feeder doubles if the input runs longer.
+            n_est = max(_input_bytes_estimate(files) // 200, 1 << 10)
+            engine["fused_fallback"] = int(not fused_fits(n_est, w, dev))
+            if not engine["fused_fallback"]:
+                feeder = DeviceFeeder(w, n_est, device=dev)
+
+    t = log.start("Reading data")
+    if feeder is not None:
+        from .ops.fused import FusedCapacityExceeded
+
+        try:
+            _, filtered = _pass1(files, nt_to_take, header_umi_size,
+                                 batch_records, cache, span_accs=span_accs,
+                                 feeder=feeder)
+        except FusedCapacityExceeded:
+            # The row estimate undershot: read again through the host
+            # path with fresh caches (these saw only a prefix).
+            feeder = None
+            engine["fused_fallback"] = 1
+            if cache is not None:
+                cache.clear()
+            if span_accs is not None:
+                span_accs = [_span_acc_new(a["budget"],
+                                           a["hdr_parts"] is not None)
+                             for a in span_accs]
+    fused = None
+    if feeder is not None:
+        from .ops.fused import FusedPipeline
+
+        res.total = int(len(filtered))
+        res.usable = int((~filtered).sum())
+        log.end(t)
+        t_uni = time.time()
+        fused = FusedPipeline(feeder, res.total, filtered, word_length=wl,
+                              max_dist=distance,
+                              want_inverse=write_annotated,
+                              want_labels=maximum)
+        res.unique = fused.unique()
+        engine["unique"] = "fused"
+        # Counts, first occurrences and the inverse are read after the
+        # neighbour programs are launched; the table stays on the device.
+        log.timings.append(("unique counting (fused)", time.time() - t_uni))
     else:
-        usable_to_read = None  # identity mapping
-        first_occ = first_occ_usable
-    inv_by_read = None
-    if write_annotated:
-        inv_by_read = np.full(res.total, -1, np.int64)
-        if res.total:
-            if any_filtered:
-                inv_by_read[usable_to_read] = inverse
-            else:
-                inv_by_read[:] = inverse
-    log.timings.append(("unique counting", time.time() - t_uni))
-    res.unique = len(uniq)
-    res.counts = counts
+        packed, filtered = _pass1(files, nt_to_take, header_umi_size,
+                                  batch_records, cache, span_accs=span_accs)
+        res.total = int(len(packed))
+        res.usable = int((~filtered).sum())
+        log.end(t)
+
+        # --- exact duplicate counting (replaces trie leaf counts) ---
+        t_uni = time.time()
+        any_filtered = bool(filtered.any())
+        usable_packed = packed[~filtered] if any_filtered else packed
+        # The row->unique inverse (and with it the per-read cluster-id
+        # vector) is only needed for annotated output.
+        uniq, counts, first_occ_usable, inverse = unique_words(
+            usable_packed, want_inverse=write_annotated, device=dev,
+            info=engine)
+        # first_occ indexes usable rows; convert to global read indices.
+        if any_filtered:
+            usable_to_read = np.flatnonzero(~filtered)
+            first_occ = (usable_to_read[first_occ_usable]
+                         if len(first_occ_usable) else first_occ_usable)
+        else:
+            usable_to_read = None  # identity mapping
+            first_occ = first_occ_usable
+        inv_by_read = None
+        if write_annotated:
+            inv_by_read = np.full(res.total, -1, np.int64)
+            if res.total:
+                if any_filtered:
+                    inv_by_read[usable_to_read] = inverse
+                else:
+                    inv_by_read[:] = inverse
+        log.timings.append(("unique counting", time.time() - t_uni))
+        res.unique = len(uniq)
 
     # --- neighbour search (humid.cc:113-158) ---
     if edit:
         t = log.start("Calculating neighbours using Levenshtein distance")
     else:
         t = log.start("Calculating neighbours using Hamming distance")
-    engine = res.extra["engine"] = {}
-    pa, pb = find_neighbor_pairs(uniq, distance,
-                                 metric="edit" if edit else "hamming",
-                                 word_length=word_length, device=dev,
-                                 info=engine, **(neighbor_opts or {}))
+    if fused is not None:
+        pa, pb = fused.neighbors(info=engine)
+        counts, first_occ, inv_by_read = fused.tables()
+    else:
+        pa, pb = find_neighbor_pairs(uniq, distance,
+                                     metric="edit" if edit else "hamming",
+                                     word_length=word_length, device=dev,
+                                     info=engine, **(neighbor_opts or {}))
+    res.counts = counts
     indptr, indices = pairs_to_csr(pa, pb, res.unique)
     res.degree = np.diff(indptr)
     log.end(t)
@@ -383,7 +503,16 @@ def run(
         t = log.start("Calculating maximum clusters")
     else:
         t = log.start("Calculating directional clusters")
-    cl = cluster_exact(counts, indptr, indices, maximum=maximum)
+    if fused is not None and maximum and fused.has_matches:
+        # -x on the fused route: labels propagated over the resident match
+        # masks (and the host's mid and big-run edges), ids finished on
+        # the host.
+        engine["components"] = "fused"
+        cl = cluster_max_from_components(counts, indptr, indices,
+                                         fused.device_labels())
+    else:
+        cl = cluster_dispatch(counts, indptr, indices, maximum=maximum,
+                              pairs=(pa, pb), device=dev, info=engine)
     res.clusters = cl.num_clusters
     res.labels = cl.labels
     res.sizes = cl.size

@@ -1,8 +1,11 @@
 """Tests of humid_tpu_torch that need a CUDA card (``cuda`` marker): the
 hand-written Hamming sweep and ring kernels against their plain PyTorch
 versions on the card, the banded-Levenshtein programs and the neighbour
-engines of both metrics (the multi-stream rings included) on the card
-against the CPU, and the CLI on the card against baseline/humid_ref.
+engines of both metrics (the multi-stream rings and the pigeonhole runs
+engines included) on the card against the CPU, device unique counting and
+the fused device-resident route against the CPU (with the host waits it
+may make and the reuse of its pinned staging buffers), and the CLI on the
+card against baseline/humid_ref.
 
 They skip where torch.cuda.is_available() is False.  This file imports no
 jax, so it also runs where JAX is not installed:
@@ -23,9 +26,13 @@ import pytest
 import torch
 
 from humid_tpu_torch import words as W
+from humid_tpu_torch.cluster import connected_components_device
 from humid_tpu_torch.ops import cuda_hamming as K
 from humid_tpu_torch.ops import edit as E
+from humid_tpu_torch.ops import fused as F
 from humid_tpu_torch.ops import neighbors as N
+from humid_tpu_torch.ops import runs_device as RD
+from humid_tpu_torch.ops import unique as U
 from humid_tpu_torch.ops import unique_words
 from humid_tpu_torch import parallel as P
 from humid_tpu_torch.parallel import cuda_ring as R
@@ -485,6 +492,161 @@ def test_edit_ring_on_cuda_matches_cpu(d, cuda_device):
         np.testing.assert_array_equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("run_cap", [2048, 6], ids=["runs", "big_runs"])
+@pytest.mark.parametrize("strategy", ["runs", "runs_device"])
+def test_runs_engines_on_cuda_match_cpu(strategy, run_cap, cuda_device):
+    """Both pigeonhole runs engines on the card == the dense sweep on the
+    CPU; with a tiny run_cap the big runs go through the tile sweep with
+    its run-id mask (at least one kernel launch)."""
+    rng = np.random.default_rng(81)
+    uniq, _, _, _ = unique_words(_words(rng, 6000, 24, pool=700),
+                                 want_inverse=False)
+    want = N.find_neighbor_pairs(uniq, 2, word_length=24, strategy="dense",
+                                 device="cpu")
+    fn = (N.find_neighbor_pairs_runs if strategy == "runs"
+          else RD.runs_device_pairs)
+    launches = K.LAUNCHES
+    info = {}
+    got = fn(uniq, 2, word_length=24, run_cap=run_cap, device=cuda_device,
+             info=info)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert info["dense_fallbacks"] == 0
+    assert (K.LAUNCHES > launches) == (run_cap == 6)
+
+
+@pytest.mark.parametrize("w", [1, 2, 3])
+def test_unique_words_device_on_cuda_matches_host(w, cuda_device):
+    """Device unique counting on the card == the host radix sort, with
+    words whose bit 31 is set and all-T words."""
+    rng = np.random.default_rng(90 + w)
+    pool = rng.integers(0, 2 ** 32, (5000, w), dtype=np.uint64).astype(
+        np.uint32)
+    pool[:3] = 0xFFFFFFFF
+    pool[3:40, 0] |= 0x80000000
+    packed = pool[rng.integers(0, len(pool), 80_000)]
+    want = unique_words(packed, want_inverse=True)
+    got = U.unique_words_device(packed, True, device=cuda_device)
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype
+        np.testing.assert_array_equal(g, x)
+
+
+def _reads(rng, n, wl, dup=6, mut_p=0.3):
+    pool = rng.integers(0, 4, (max(n // dup, 1), wl), dtype=np.uint8)
+    codes = pool[rng.integers(0, len(pool), n)]
+    mut = np.flatnonzero(rng.random(n) < mut_p)
+    codes[mut, rng.integers(0, wl, len(mut))] = rng.integers(
+        0, 4, len(mut), dtype=np.uint8)
+    return W.pack_words(codes)
+
+
+def _fused(packed, filtered, device, *, chunk_rows=4096, unique=True, **kw):
+    """A FusedPipeline fed in batches of 3,000 reads (after unique())."""
+    feeder = F.DeviceFeeder(packed.shape[1], len(packed) // 5, device=device,
+                            chunk_rows=chunk_rows)
+    keep = ~filtered
+    for lo in range(0, len(packed), 3000):
+        feeder.push(packed[lo:lo + 3000][keep[lo:lo + 3000]])
+    fp = F.FusedPipeline(feeder, len(packed), filtered, **kw)
+    if unique:
+        fp.unique()
+    return fp
+
+
+@pytest.mark.parametrize("wl,m,d_cap,run_cap", [
+    (24, 1, 8, 2048), (24, 2, 2, 64), (33, 2, 1, 12), (16, 1, 8, 4)],
+    ids=["w2_m1", "w2_m2_mid", "w3_big", "w1_small_cap"])
+def test_fused_on_cuda_matches_cpu(wl, m, d_cap, run_cap, cuda_device):
+    """The fused route on the card (feeder growth, filtered reads, the
+    inverse, mid runs, big runs through the tile sweep, the giant-runs
+    fallback, program D's labels) == the same on the CPU, and its labels ==
+    connected components of its pairs."""
+    rng = np.random.default_rng(wl + m)
+    packed = _reads(rng, 40_000, wl, dup=60 if run_cap < 100 else 6)
+    filtered = rng.random(len(packed)) < 0.1
+    kw = dict(word_length=wl, max_dist=m, want_inverse=True,
+              want_labels=True, d_cap=d_cap, run_cap=run_cap)
+    card = _fused(packed, filtered, cuda_device, **kw)
+    cpu = _fused(packed, filtered, "cpu", **kw)
+    assert card.k == cpu.k
+    for g, x in zip(card.tables(), cpu.tables()):
+        np.testing.assert_array_equal(g, x)
+    info_card, info_cpu = {}, {}
+    got = card.neighbors(info=info_card)
+    want = cpu.neighbors(info=info_cpu)
+    assert info_card == info_cpu
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(card.table(), cpu.table())
+    if card.has_matches:
+        labels = card.device_labels()
+        np.testing.assert_array_equal(labels, cpu.device_labels())
+        np.testing.assert_array_equal(labels, connected_components_device(
+            got[0], got[1], card.k, device=cuda_device))
+
+
+def test_fused_waits_only_at_its_read_backs(cuda_device, monkeypatch):
+    """unique() waits once (k), neighbors() at its bundled read-backs (run
+    structure, bitmaps, sparse gathers), tables() once: every other
+    synchronising call raises under the sync debug mode."""
+    rng = np.random.default_rng(7)
+    packed = _reads(rng, 60_000, 24)
+    filtered = np.zeros(len(packed), bool)
+    kw = dict(word_length=24, max_dist=1, want_inverse=True)
+    want = _fused(packed, filtered, "cpu", **kw).neighbors()
+    _fused(packed, filtered, cuda_device, **kw).neighbors()  # warm up
+    fp = _fused(packed, filtered, cuda_device, unique=False, **kw)
+    waits = []
+    real = F.to_host
+
+    def counted(*tensors):
+        waits.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(*tensors)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(F, "to_host", counted)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fp.unique()
+        n_unique = len(waits)
+        info = {}
+        pairs = fp.neighbors(info=info)
+        n_neighbors = len(waits) - n_unique
+        fp.tables()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert n_unique == 1
+    assert info["decode"] == "sparse" and 2 <= n_neighbors <= 4
+    assert len(waits) == n_unique + n_neighbors + 1
+    np.testing.assert_array_equal(pairs[0], want[0])
+    np.testing.assert_array_equal(pairs[1], want[1])
+
+
+def test_feeder_reuses_pinned_buffers_safely(cuda_device):
+    """Hundreds of chunks through the two pinned staging buffers, the
+    buffer doubling four times on the way: every row lands where it
+    belongs (a buffer refilled before its copy landed would corrupt
+    rows), the tail stays all ones."""
+    rng = np.random.default_rng(3)
+    n = 300_000
+    packed = rng.integers(0, 2 ** 32, (n, 3), dtype=np.uint64).astype(
+        np.uint32)
+    feeder = F.DeviceFeeder(3, n // 16, device=cuda_device, chunk_rows=1024)
+    lo = 0
+    while lo < n:
+        hi = min(n, lo + int(rng.integers(1, 5000)))
+        feeder.push(packed[lo:hi])
+        lo = hi
+    buf = feeder.finish().cpu().numpy().view(np.uint32)
+    assert feeder.n == n and feeder.cap >= n
+    np.testing.assert_array_equal(buf[:n], packed)
+    assert np.all(buf[n:] == 0xFFFFFFFF)
+
+
 @pytest.fixture(scope="module")
 def humid_ref(tmp_path_factory):
     gxx = shutil.which("g++")
@@ -515,6 +677,9 @@ def _read(path):
 def test_cli_on_cuda_matches_humid_ref(n_files, umi, extra, gen_kw,
                                        cuda_device, humid_ref, tmp_path,
                                        monkeypatch):
+    """The CLI on the card by its default route (calibration off: the
+    device engines, the fused route for Hamming) and, for Hamming, by the
+    bucketed tile sweep (at least one kernel launch)."""
     from humid_tpu_torch.cli import main
 
     gen_dataset(np.random.default_rng(n_files + len(extra)), str(tmp_path),
@@ -524,12 +689,18 @@ def test_cli_on_cuda_matches_humid_ref(n_files, umi, extra, gen_kw,
     subprocess.run([humid_ref, "-d", str(tmp_path / "ref"), "-s", "-a",
                     *extra, *files], check=True, capture_output=True)
     monkeypatch.setenv("HUMID_TPU_TORCH_DEVICE", "cuda")
-    launches = K.LAUNCHES
-    assert main(["-d", str(tmp_path / "port"), "-s", "-a", "-l", os.devnull,
-                 *extra, *files]) == 0
-    assert "-e" in extra or K.LAUNCHES > launches  # -e runs no kernel
-    names = sorted(os.listdir(tmp_path / "ref"))
-    assert names == sorted(os.listdir(tmp_path / "port"))
-    for name in names:
-        assert _read(tmp_path / "ref" / name) == \
-            _read(tmp_path / "port" / name), name
+    monkeypatch.setenv("HUMID_TPU_TORCH_CALIBRATION", "off")
+    routes = [("port", None)] + ([] if "-e" in extra
+                                 else [("bucketed", "bucketed")])
+    for out, strategy in routes:
+        if strategy:
+            monkeypatch.setenv("HUMID_TPU_TORCH_STRATEGY", strategy)
+        launches = K.LAUNCHES
+        assert main(["-d", str(tmp_path / out), "-s", "-a", "-l",
+                     os.devnull, *extra, *files]) == 0
+        assert not strategy or K.LAUNCHES > launches
+        names = sorted(os.listdir(tmp_path / "ref"))
+        assert names == sorted(os.listdir(tmp_path / out))
+        for name in names:
+            assert _read(tmp_path / "ref" / name) == \
+                _read(tmp_path / out / name), name

@@ -349,8 +349,11 @@ def test_bad_metric_and_missing_word_length():
     with pytest.raises(ValueError, match="word_length"):
         N.find_neighbor_pairs(uniq, 1, metric="edit", device="cpu")
     with pytest.raises(ValueError, match="unknown strategy"):
-        N.find_neighbor_pairs(uniq, 1, word_length=16, strategy="runs",
-                              device="cpu")  # Hamming runs: not ported
+        N.find_neighbor_pairs(uniq, 1, word_length=16, strategy="trie",
+                              device="cpu")
+    for strategy in ("runs", "runs_device"):  # Hamming pigeonhole engines
+        with pytest.raises(ValueError, match="requires word_length"):
+            N.find_neighbor_pairs(uniq, 1, strategy=strategy, device="cpu")
 
 
 def _join_case(rng, n, n_keys, self_join):

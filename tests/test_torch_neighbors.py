@@ -5,7 +5,8 @@ Inputs are made with numpy from fixed seeds and fed to both packages.
 Pair lists are integer data, so every comparison is exact equality.  The
 JAX side runs its host ``runs`` engine (what it picks off-TPU for large
 tables) or its XLA dense tile scan; the port runs its dense and bucketed
-tile sweeps, on the CPU through the sweep's plain version.
+tile sweeps, on the CPU through the sweep's plain version, and ``auto``,
+which on the CPU device is the host ``runs`` engine too.
 """
 
 import numpy as np
@@ -41,7 +42,7 @@ def _assert_pairs(got, want):
 def test_engines_match_reference(m, length):
     rng = np.random.default_rng(10 * m + length)
     uniq = _table(rng, length, 250, 1400, m + 1)
-    assert len(uniq) > 512  # above runs_threshold: auto -> bucketed
+    assert len(uniq) > 512  # above runs_threshold: auto -> the router
     want = JN.find_neighbor_pairs(uniq, m, word_length=length,
                                   strategy="runs")
     if m:
@@ -66,7 +67,8 @@ def test_small_table_matches_dense_reference(length):
 def test_degenerate_giant_run():
     """Every word shares its first pigeonhole segment (substitutions only
     in positions 12-23): one run spans every tile, so the bucketed list
-    falls back to the dense tile grid."""
+    falls back to the dense tile grid.  ``auto`` (on the CPU device the
+    host runs engine) gives the same pairs."""
     rng = np.random.default_rng(5)
     tpl = rng.integers(0, 4, 24, dtype=np.uint8)
     codes = np.tile(tpl, (3000, 1))
@@ -79,9 +81,10 @@ def test_degenerate_giant_run():
     t = u_pad // b
     assert len(tile_pairs) >= t * (t + 1) // 2  # dense grid in partition 0
     want = JN.find_neighbor_pairs(uniq, 1, word_length=24, strategy="runs")
-    _assert_pairs(N.find_neighbor_pairs(uniq, 1, word_length=24, tile=256,
-                                        runs_threshold=1024, device="cpu"),
-                  want)
+    for strategy in ("bucketed", "auto"):
+        _assert_pairs(N.find_neighbor_pairs(
+            uniq, 1, word_length=24, tile=256, strategy=strategy,
+            runs_threshold=1024, device="cpu"), want)
 
 
 def test_forced_capacity_retry(monkeypatch):
@@ -99,10 +102,12 @@ def test_forced_capacity_retry(monkeypatch):
 
 
 @pytest.mark.parametrize("u,m,length,want", [
-    (3000, 1, 24, "bucketed"), (3000, 0, 24, "dense"),
+    (3000, 1, 24, "runs"), (3000, 0, 24, "dense"),
     (2048, 1, 24, "dense"), (3000, 1, None, "dense")])
 def test_choose_engine(u, m, length, want):
-    assert N.choose_engine(u, m, length) == want
+    """Above the size gate the router answers; on the CPU device that is
+    the host runs engine."""
+    assert N.choose_engine(u, m, length, device="cpu") == want
 
 
 @pytest.mark.parametrize("n_seg", [2, 4])

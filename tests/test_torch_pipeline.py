@@ -215,11 +215,13 @@ def midscale_edit(humid_ref, tmp_path_factory):
 
 
 @pytest.mark.parametrize("opts,engine", [
-    ({}, {"metric": "edit", "strategy": "runs", "join_cap_fallbacks": 0}),
+    ({}, {"unique": "host", "metric": "edit", "strategy": "runs",
+          "join_cap_fallbacks": 0}),
     ({"strategy": "sharded", "mesh": 3},
-     {"metric": "edit", "strategy": "sharded", "shards": 3,
+     {"unique": "host", "metric": "edit", "strategy": "sharded", "shards": 3,
       "ring_fallbacks": 0, "join_cap_fallbacks": 0}),
-    ({"strategy": "dense"}, {"metric": "edit", "strategy": "dense"}),
+    ({"strategy": "dense"}, {"unique": "host", "metric": "edit",
+                             "strategy": "dense"}),
 ], ids=["auto", "sharded", "dense"])
 def test_midscale_edit_matches_humid_ref(opts, engine, midscale_edit,
                                          tmp_path):
@@ -315,8 +317,8 @@ def test_mesh_strategies_write_the_same_bytes(tmp_path):
             files, dir_name=str(tmp_path / strategy), device="cpu",
             neighbor_opts={"strategy": strategy, "mesh": mesh}, **kw)
         assert res.extra["engine"] == {
-            "metric": "hamming", "strategy": strategy, "shards": 3,
-            "ring_fallbacks": 0}
+            "unique": "host", "metric": "hamming", "strategy": strategy,
+            "shards": 3, "ring_fallbacks": 0}
         _assert_same_dirs(tmp_path / "auto", tmp_path / strategy)
         _assert_same_dirs(tmp_path / "jax", tmp_path / strategy)
 
@@ -334,6 +336,6 @@ def test_cli_honours_strategy_and_shards_variables(humid_ref, cpu_device,
         cli, "run", lambda *a, **k: results.append(pipeline.run(*a, **k)))
     _run_port(tmp_path / "port", ["-s", "-a", *extra], files)
     assert [r.extra["engine"] for r in results] == [
-        {"metric": "hamming", "strategy": "ring", "shards": 4,
-         "ring_fallbacks": 0}]
+        {"unique": "host", "metric": "hamming", "strategy": "ring",
+         "shards": 4, "ring_fallbacks": 0}]
     _assert_same_dirs(tmp_path / "ref", tmp_path / "port")
