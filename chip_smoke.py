@@ -118,9 +118,37 @@ Phases, each printing its own line; any failure exits non-zero:
     rows) by the default route, host ``runs`` and forced fused, each of
     which must launch the tile sweep for its big run (``_big_run_pairs``)
     and write humid_ref's bytes.  Phase seconds per route are printed.
-17. One JSON line describing both kernels: launches on their end-to-end
-    runs (the tile sweep's on phase 16's big-run path by the default
-    route); ``ms``, the kernel alone (phase 3's ``kernel_ms`` at the
+17. mp_1M: the phase-4 file through the CLI as 4 processes of one gloo
+    group on the card (a free localhost port), with
+    HUMID_TPU_TORCH_CLUSTER_SHARDED=1; the neighbour search must run on
+    the card (the broadcast pick, else HUMID_TPU_TORCH_DEVICE_ENGINE=1
+    forces a device engine).  Each process's launch counts (read just
+    after its run; a process starts at 0), search record and the scaling
+    report are printed; outputs byte-identical to phase 4's and to
+    baseline/humid_ref.
+18. mp_big_runs: phase 16's low-entropy file as 4 processes, the cluster
+    gate at its default (replicated): byte-identical to phase 16's
+    default run, and at least one K1 launch summed over the processes
+    (the owned giant run through ``_big_run_pairs``).
+19. mp_edit and mp_gz: a 200,000-read file of the same recipe with ``-e``
+    as 2 processes, and its gzip copy as 3 processes (the range spill);
+    each against the single-process port (in process) and
+    baseline/humid_ref with the same flags (gzip by decompressed bytes).
+20. mesh_labels: e2e_1M's unique table (179,207 words) and its bucketed
+    K1 pairs; ``distributed_components`` replicated (the default) and
+    node-sharded on 4 shards of the card, and ``dedup_step`` on 4 shards
+    (K2 launches counted, >= 1), label for label against the single-card
+    ``connected_components_device``; ms by CUDA events, kernels and busy
+    time (the union of the kernels' intervals) from ``torch.profiler``,
+    and ``program_bound``.  Run right after phase 4: later in the
+    process the trace loses K2 events, and then no busy time is kept.
+21. startup: one subprocess timing the torch import, the package import,
+    CUDA init, ``_build.py``'s staleness check and the calibration cache
+    read.
+22. One JSON line describing both kernels: ``launches`` on this slice's
+    paths (K1 summed over mp_big_runs' processes, K2 in mesh_labels'
+    ``dedup_step``), each earlier path's in ``launches_by_path``;
+    ``ms``, the kernel alone (phase 3's ``kernel_ms`` at the
     1M-read table for the tile sweep, phase 8's one step for the ring);
     ``wrapper_ms``, the same call through its wrapper; ``plain_ms``; the
     POPC form's bound for the same work.  The edit path launches neither
@@ -924,9 +952,14 @@ def edit_dp_phase(device) -> None:
         "(tolerance 0)")
 
 
-def kernels_launched(fn, name: str) -> dict:
+def kernels_launched(fn, name: str, kernel: str | None = None) -> dict:
     """Device kernels, copies and memsets that one call of ``fn``
-    launches, counted in a ``torch.profiler`` trace."""
+    launches, counted in a ``torch.profiler`` trace.  ``kernel_ms`` sums
+    the kernels' durations; ``busy_ms`` is the union of their intervals,
+    the card's busy time where kernels on several streams overlap (the
+    same where they do not).  ``kernel`` names one kernel whose events
+    are also counted (``named``) and whose intervals' union is timed
+    (``named_busy_ms``)."""
     import torch
 
     fn()
@@ -943,13 +976,30 @@ def kernels_launched(fn, name: str) -> dict:
                   if e.get("ph") == "X"]
     os.remove(path)
     count = lambda cat: sum(1 for e in events if e.get("cat") == cat)
-    out = {"kernels": count("kernel"), "copies": count("gpu_memcpy"),
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out = {"kernels": len(kernels), "copies": count("gpu_memcpy"),
            "memsets": count("gpu_memset"),
-           "kernel_ms": sum(e["dur"] for e in events
-                            if e.get("cat") == "kernel") / 1e3}
+           "kernel_ms": sum(e["dur"] for e in kernels) / 1e3,
+           "busy_ms": _union_ms(kernels)}
+    if kernel is not None:
+        named = [e for e in kernels if kernel in e["name"]]
+        out.update(named=len(named), named_busy_ms=_union_ms(named))
     if not out["kernels"]:
         raise SmokeFailure(f"{name}: the trace holds no kernel")
     return out
+
+
+def _union_ms(events) -> float:
+    """Milliseconds covered by the union of trace events' intervals."""
+    total, end = 0.0, None
+    for ts, dur in sorted((e["ts"], e["dur"]) for e in events):
+        if end is None or ts > end:
+            total += dur
+            end = ts + dur
+        elif ts + dur > end:
+            total += ts + dur - end
+            end = ts + dur
+    return total / 1e3
 
 
 def edit_bounds(pairs: int, m: int, length: int, card: dict) -> dict:
@@ -1559,6 +1609,298 @@ def routes_phase(e2e: dict, device: str = "cuda",
     return out
 
 
+#: Runs the CLI's ``main`` in a process of a multi-process run and prints
+#: one line "MP {json}" after it: the process's kernel launch counts (the
+#: counters start at 0 with the process and are read just after the run),
+#: the neighbour search's record and the scaling report.
+MP_RUNNER = """
+import json, sys, time
+from humid_tpu_torch import cli
+from humid_tpu_torch.ops import cuda_hamming as K
+from humid_tpu_torch.parallel import cuda_ring as R
+from humid_tpu_torch.parallel import pipeline as PP
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[1:])
+print("MP " + json.dumps({"rc": rc, "k1": K.LAUNCHES, "k2": R.LAUNCHES,
+                          "seconds": time.perf_counter() - t0,
+                          "engine": PP.LAST_ENGINE,
+                          "report": PP.LAST_SCALING_REPORT}), flush=True)
+sys.exit(rc)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _read_out(path: str) -> bytes:
+    import gzip
+
+    with (gzip.open(path) if path.endswith(".gz") else open(path, "rb")) as f:
+        return f.read()
+
+
+def _same_contents(d1: str, d2: str) -> None:
+    """Like _same_files, but gzip files by their decompressed bytes (the
+    writers' member boundaries differ)."""
+    n1, n2 = sorted(os.listdir(d1)), sorted(os.listdir(d2))
+    if n1 != n2:
+        raise SmokeFailure(f"output files differ: {n1} vs {n2}")
+    for n in n1:
+        if _read_out(os.path.join(d1, n)) != _read_out(os.path.join(d2, n)):
+            raise SmokeFailure(f"{n} differs between {d1} and {d2}")
+
+
+def mp_run(name: str, files, flags, n_proc: int, env=None,
+           timeout: int = 600) -> dict:
+    """The CLI as ``n_proc`` processes of one gloo group on this machine's
+    card (a free localhost port), every process started at once; returns
+    each process's "MP" record and the wall seconds of the slowest."""
+    out = os.path.join(WORK, f"out_{name}")
+    port = _free_port()
+    env = dict(os.environ, HUMID_TPU_TORCH_DEVICE="cuda",
+               HUMID_TPU_TORCH_SCALING_REPORT="1", **(env or {}))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MP_RUNNER, "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", str(n_proc),
+         "--process-id", str(p), *flags, "-d", out, "-l",
+         os.path.join(WORK, f"{name}_{p}.log"), *files],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for p in range(n_proc)]
+    results = []
+    try:
+        for p in procs:
+            results.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    seconds = time.perf_counter() - t0
+    recs = []
+    for i, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
+        if p.returncode:
+            raise SmokeFailure(f"{name}: process {i} exited "
+                               f"{p.returncode}:\n{stderr[-3000:]}")
+        line = [ln for ln in stdout.splitlines() if ln.startswith("MP ")]
+        recs.append(json.loads(line[-1][3:]))
+    for i, rec in enumerate(recs):
+        say(f"{name} process {i}: K1 launches {rec['k1']}, K2 launches "
+            f"{rec['k2']}, {rec['seconds']:.3f} s, engine "
+            f"{json.dumps(rec['engine'])}")
+    say(f"{name} scaling report (process 0): "
+        f"{json.dumps(recs[0]['report'])}")
+    return {"out": out, "procs": recs, "seconds": seconds,
+            "k1": sum(r["k1"] for r in recs),
+            "k2": sum(r["k2"] for r in recs),
+            "engine": recs[0]["engine"]}
+
+
+def mp_1m_phase(e2e: dict, device) -> dict:
+    """Phase 17 (mp_1M): the phase-4 file as 4 processes on the one card,
+    with the sharded cluster phase forced; the neighbour search must run
+    on the card (the broadcast pick, or a forced device engine)."""
+    from humid_tpu_torch import _backend
+
+    env = {"HUMID_TPU_TORCH_CLUSTER_SHARDED": "1"}
+    pick = _backend.pick_neighbor_engine(device, shardable_only=True)
+    if pick == "runs":
+        env["HUMID_TPU_TORCH_DEVICE_ENGINE"] = "1"
+    rec = mp_run("mp_1M", [e2e["fastq"]], e2e["flags"], 4, env)
+    engine = rec["engine"]
+    if engine.get("strategy") not in ("bucketed", "runs_device"):
+        raise SmokeFailure(f"mp_1M searched the neighbours with "
+                           f"{engine}, not a device engine")
+    if engine.get("cluster") != "sharded":
+        raise SmokeFailure(f"mp_1M: cluster phase {engine.get('cluster')}")
+    for ref in e2e["outs"]:
+        _same_files(ref, rec["out"])
+    say(f"phase 17 mp_1M: 4 processes, {rec['seconds']:.3f} s wall, router "
+        f"pick {pick}{' (forced to a device engine)' if pick == 'runs' else ''}"
+        f"; outputs byte-identical to phase 4's"
+        + (" and to baseline/humid_ref" if len(e2e["outs"]) > 1 else ""))
+    return rec
+
+
+def mp_big_runs_phase() -> dict:
+    """Phase 18 (mp_big_runs): phase 16's low-entropy file as 4 processes,
+    the cluster gate at its default: byte-identical to phase 16's default
+    run, and the owned big run through K1 in some process."""
+    low = os.path.join(WORK, "low_entropy.fastq")
+    rec = mp_run("mp_big_runs", [low], ["-n", "24", "-m", "1", "-s", "-a"],
+                 4)
+    for ref in ("out_route_big_runs_default", "out_ref_low"):
+        if os.path.isdir(os.path.join(WORK, ref)):
+            _same_files(os.path.join(WORK, ref), rec["out"])
+    if rec["k1"] < 1:
+        raise SmokeFailure(f"mp_big_runs: no process launched K1: {rec}")
+    if rec["engine"].get("cluster") != "replicated":
+        raise SmokeFailure(f"mp_big_runs: cluster {rec['engine']}")
+    say(f"phase 18 mp_big_runs: K1 launches over the processes "
+        f"{[r['k1'] for r in rec['procs']]}; byte-identical to phase 16")
+    return rec
+
+
+def mp_edit_gz_phase(e2e: dict, device: str = "cuda",
+                     n_reads: int = 200_000) -> dict:
+    """Phase 19 (mp_edit, mp_gz): a 200,000-read file of the benchmark
+    recipe with -e as 2 processes, and its gzip copy (Hamming, phase 4's
+    flags) as 3 processes through the range spill; each against the
+    single-process port in process and baseline/humid_ref."""
+    import gzip
+
+    import humid_tpu_torch
+
+    fq = os.path.join(WORK, "sample_200k.fastq")
+    gen_reads(fq, n_reads, seed=19)
+    fq_gz = fq + ".gz"
+    with open(fq, "rb") as src, gzip.open(fq_gz, "wb", compresslevel=1) as g:
+        shutil.copyfileobj(src, g, 1 << 24)
+    out = {}
+    for name, path, flags, n_proc in (
+            ("mp_edit", fq, ["-n", "24", "-m", "1", "-e", "-s", "-a"], 2),
+            ("mp_gz", fq_gz, e2e["flags"], 3)):
+        one = os.path.join(WORK, f"out_{name}_one")
+        t0 = time.perf_counter()
+        humid_tpu_torch.run([path], word_length=24, distance=1,
+                            edit="-e" in flags, dir_name=one,
+                            log_name=os.devnull, run_stats=True,
+                            write_annotated=True, device=device)
+        one_s = time.perf_counter() - t0
+        rec = mp_run(name, [path], flags, n_proc)
+        refs = [one]
+        if e2e["humid_ref"]:
+            ref = os.path.join(WORK, f"out_ref_{name}")
+            os.makedirs(ref)
+            subprocess.run([e2e["humid_ref"], *flags, "-d", ref, "-l",
+                            os.devnull, path], check=True,
+                           capture_output=True)
+            refs.append(ref)
+        for ref in refs:
+            _same_contents(ref, rec["out"])
+        say(f"phase 19 {name}: {n_proc} processes {rec['seconds']:.3f} s "
+            f"wall against one process in process {one_s:.3f} s; "
+            f"{'decompressed ' if path.endswith('.gz') else ''}outputs "
+            f"identical to the single-process port"
+            + (" and to baseline/humid_ref" if e2e["humid_ref"] else ""))
+        out[name] = rec
+    return out
+
+
+def mesh_labels_phase(e2e: dict, device, card) -> dict:
+    """Phase 20 (mesh_labels): e2e_1M's unique table and its bucketed K1
+    pairs; ``distributed_components`` replicated (its default) and
+    node-sharded on 4 shards of the card, and ``dedup_step`` on 4 shards,
+    each label for label against the single-card
+    ``connected_components_device``; ms by CUDA events, kernels and busy
+    time from ``torch.profiler``, the bound of ``program_bound``.  The
+    shards' streams overlap K2's launches, so busy is the union of the
+    kernels' intervals, and it is kept only when the trace holds every
+    K2 launch that the wrapper counted."""
+    import torch
+
+    from humid_tpu_torch.cluster.labelprop import components_tensor
+    from humid_tpu_torch.ops import find_neighbor_pairs, unique_words
+    from humid_tpu_torch.parallel import cuda_ring, data_mesh
+    from humid_tpu_torch.parallel import labelprop as L
+    from humid_tpu_torch.parallel.pipeline import pack_host_range
+
+    packed, filtered = pack_host_range([e2e["fastq"]], 0, 1 << 40)
+    uniq = unique_words(packed[~filtered], want_inverse=False,
+                        device=device)[0]
+    u = len(uniq)
+    pa, pb = find_neighbor_pairs(uniq, 1, word_length=24,
+                                 strategy="bucketed", device=device)
+    want = components_tensor(pa, pb, u, device).cpu().numpy()
+    mesh = data_mesh(4, device)
+    e = len(pa)
+    labels_bound = program_bound(16 * e + 8 * u, 4 * e + 2 * u, card)
+    programs = {
+        "labels_replicated": lambda: L.distributed_components(
+            pa, pb, u, mesh=mesh, node_sharded=False),
+        "labels_node_sharded": lambda: L.distributed_components(
+            pa, pb, u, mesh=mesh, node_sharded=True),
+        "dedup_step": lambda: L.dedup_step(uniq, 1, mesh=mesh)[0],
+        "single_card": lambda: components_tensor(pa, pb, u, device),
+    }
+    out = {"nodes": u, "edges": e}
+    for name, fn in programs.items():
+        if name == "dedup_step":
+            cuda_ring.LAUNCHES = 0
+            got = fn()
+            out["k2_launches"] = cuda_ring.LAUNCHES
+            if out["k2_launches"] < 1:
+                raise SmokeFailure("mesh_labels: dedup_step launched no K2")
+        else:
+            got = fn()
+        got = got.cpu().numpy() if hasattr(got, "cpu") else got
+        if not np.array_equal(got, want):
+            raise SmokeFailure(f"mesh_labels {name}: labels differ from "
+                               f"connected_components_device")
+        bound = labels_bound
+        if name == "dedup_step":
+            # K2's ring meets every word pair once: the POPC form's bound
+            # of those evaluations (the labels' share is far below it).
+            bound = bound_ms(u * (u - 1) // 2, uniq.shape[1],
+                             4 * uniq.size + 16 * e + 8 * u, card)
+        rec = {"launches": kernels_launched(
+                   fn, name, "ring_sweep_kernel" if name == "dedup_step"
+                   else None),
+               "ms": time_cuda(fn, 3), **bound}
+        if (name == "dedup_step"
+                and rec["launches"]["named"] != out["k2_launches"]):
+            # The trace lost K2 events: its busy time would be short.
+            rec["launches"]["busy_ms"] = None
+        out[name] = rec
+        say(f"phase 20 {name}: labels equal; {json.dumps(rec)}")
+    say(f"phase 20 mesh_labels: {u} nodes, {e} edges, "
+        f"{len(np.unique(want))} components; K2 launches in dedup_step "
+        f"{out['k2_launches']}")
+    return out
+
+
+STARTUP_PROBE = """
+import json, time
+t = [time.perf_counter()]
+import torch
+t.append(time.perf_counter())
+import humid_tpu_torch.cli
+t.append(time.perf_counter())
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t.append(time.perf_counter())
+from humid_tpu_torch import _build
+for name in ("hamming_sweep", "ring_sweep"):
+    _build.build(name)
+t.append(time.perf_counter())
+from humid_tpu_torch import _backend
+_backend.engine_constants(torch.device("cuda"))
+t.append(time.perf_counter())
+parts = ["torch_import", "package_import", "cuda_init", "build_check",
+         "calibration_read"]
+print(json.dumps({k: b - a for k, a, b in zip(parts, t, t[1:])}))
+"""
+
+
+def startup_phase() -> dict:
+    """Phase 21 (startup): one subprocess like the CLI's, its start-up cut
+    into the torch import, the package import, CUDA init, _build.py's
+    staleness check of both kernels and the calibration cache read."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", STARTUP_PROBE], cwd=REPO,
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise SmokeFailure(f"startup probe failed:\n{proc.stderr}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec["process_s"] = time.perf_counter() - t0
+    say(f"phase 21 startup (s): {json.dumps(rec)}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1618,6 +1960,9 @@ def main() -> int:
     sweeps, tables = sweep_phase(device, card_info)
     calibration_phase(device)
     e2e = end_to_end_phase(1_000_000)
+    # Phase 20 runs this early: the longer the process has run, the more
+    # of K2's kernels its torch.profiler trace loses (PERF.md).
+    mesh_labels = mesh_labels_phase(e2e, device, card_info)
     uniq_1m = tables["bucketed_1M_reads"]
     ring_err = ring_step_phase(device, uniq_1m, tables["dense_L33_m2"])
     ids_phase(device, uniq_1m, card_info)
@@ -1635,6 +1980,10 @@ def main() -> int:
     engines_agree_phase(device, tables)
     programs_phase(device, card_info)
     routes = routes_phase(e2e)
+    mp_1m = mp_1m_phase(e2e, device)
+    mp_big = mp_big_runs_phase()
+    mp_edit_gz = mp_edit_gz_phase(e2e)
+    startup_phase()
 
     main_shape = sweeps["bucketed_1M_reads"]
     no_library = None  # no single PyTorch call computes either sweep
@@ -1642,9 +1991,17 @@ def main() -> int:
         "name": "hamming_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/hamming_sweep.cu",
         "replaces": "humid_tpu/ops/pallas_hamming.py:60",
-        # On the big-run path: the default route on the low-entropy file
-        # (phase 16), where _big_run_pairs takes its giant runs.
-        "launches": routes["big_runs_default"]["launches"],
+        # This slice's path: the multi-process run of the low-entropy
+        # file (phase 18; summed over its 4 processes), where the owned
+        # giant run goes through _big_run_pairs.  The earlier paths' counts
+        # beside it.
+        "launches": mp_big["k1"],
+        "launches_by_path": {
+            "mp_big_runs": mp_big["k1"], "mp_1M": mp_1m["k1"],
+            "mp_edit": mp_edit_gz["mp_edit"]["k1"],
+            "mp_gz": mp_edit_gz["mp_gz"]["k1"],
+            "big_runs_default": routes["big_runs_default"]["launches"],
+            "bucketed_e2e_1M": routes["bucketed"]["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in sweeps.values()),
         # ms: the kernel alone, for both kernels; wrapper_ms: through the
         # wrapper (allocation, read-back and sort included).
@@ -1656,7 +2013,12 @@ def main() -> int:
         "name": "ring_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/ring_sweep.cu",
         "replaces": "humid_tpu/parallel/pallas_ring.py:75",
-        "launches": mesh_launches["ring"],
+        # This slice's path: dedup_step on 4 shards (phase 20); the ring
+        # route end to end (phase 9) beside it.
+        "launches": mesh_labels["k2_launches"],
+        "launches_by_path": {"mesh_labels_dedup_step":
+                             mesh_labels["k2_launches"],
+                             "ring_e2e_1M": mesh_launches["ring"]},
         "max_abs_err": max(ring_err, ring["max_abs_err"]),
         "ms": ring["step_kernel_ms"], "wrapper_ms": ring["step_ms"],
         "plain_ms": ring["step_plain_ms"],

@@ -54,6 +54,11 @@ _NEIGHBOR_ENGINES = {
     "runs_device": "neighbors_runs_device_ns",      # device run sweeps
 }
 
+#: Engines that honour find_neighbor_pairs' host ``shard`` (the mesh
+#: strategies search their whole table instead): the choices of a
+#: multi-process run.
+_SHARDABLE_ENGINES = {"runs", "bucketed", "runs_device"}
+
 
 def _forced() -> bool | None:
     env = os.environ.get("HUMID_TPU_TORCH_DEVICE_ENGINE", "").lower()
@@ -231,14 +236,17 @@ def _constants(device: torch.device, need) -> dict | None:
     return c
 
 
-def pick_neighbor_engine(device: torch.device) -> str:
+def pick_neighbor_engine(device: torch.device,
+                         shardable_only: bool = False) -> str:
     """The neighbour engine of ``auto`` for Hamming tables above the size
     gate (a find_neighbor_pairs strategy): ``runs`` on the CPU device or
     with the host engines forced; else the measured fastest of host
     ``runs``, ``bucketed`` and ``runs_device``, where a device engine must
     beat the host one by 10% so that noise does not flip the route.  Forced device engines
     take the fastest device engine, and without constants
-    ``runs_device``."""
+    ``runs_device``.  ``shardable_only`` keeps to the engines that honour
+    a host ``shard`` (``_SHARDABLE_ENGINES``; every engine the router
+    picks from does today)."""
     forced = _forced()
     if forced is False or (forced is None and device.type != "cuda"):
         return "runs"
@@ -247,7 +255,8 @@ def pick_neighbor_engine(device: torch.device) -> str:
         return "runs_device"
     c = _noise_guarded(c, list(_NEIGHBOR_ENGINES.values()), device)
     dev_engines = {s: float(c[k]) for s, k in _NEIGHBOR_ENGINES.items()
-                   if s != "runs"}
+                   if s != "runs" and not (shardable_only
+                                           and s not in _SHARDABLE_ENGINES)}
     best_dev = min(dev_engines, key=dev_engines.get)
     if forced or dev_engines[best_dev] < 0.9 * float(c["neighbors_runs_ns"]):
         return best_dev

@@ -12,8 +12,13 @@ commandIO boolean flags TOGGLE their default, so ``-q`` turns the dedup
 output OFF — replicated here with store_false.
 
 The neighbour search runs on the torch device named by
-HUMID_TPU_TORCH_DEVICE (default ``cuda``).  The multi-host flags are not
-yet ported: they exit with status 2.
+HUMID_TPU_TORCH_DEVICE (default ``cuda``).
+
+Several processes (``--coordinator HOST:PORT --num-processes N
+--process-id I``, one command per process, on one machine or several)
+run :func:`humid_tpu_torch.parallel.run_distributed` over a ``gloo``
+process group whose rendezvous process 0 serves at HOST:PORT; with a
+bare ``cuda`` device process I takes card I % cards.
 """
 
 from __future__ import annotations
@@ -56,11 +61,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use maximum clustering method")
     p.add_argument("--coordinator", type=str, default=None,
                    metavar="HOST:PORT",
-                   help="multi-host coordinator address (not yet ported)")
+                   help="rendezvous of a multi-process run (process 0 "
+                        "serves it; extension over the reference)")
     p.add_argument("--num-processes", type=int, default=None,
-                   metavar="N", help="number of hosts (not yet ported)")
+                   metavar="N", help="number of processes in the run")
     p.add_argument("--process-id", type=int, default=None,
-                   metavar="I", help="this host's index (not yet ported)")
+                   metavar="I", help="this process's index")
     p.add_argument("files", nargs="+", help="FastQ files")
     return p
 
@@ -68,11 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if (args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None):
-        parser.error("--coordinator/--num-processes/--process-id "
-                     "(multi-host runs) are not yet ported to "
-                     "humid_tpu_torch; use humid_tpu")
+    if args.coordinator is not None or (args.num_processes or 0) > 1:
+        return _main_distributed(parser, args)
     try:
         run(
             args.files,
@@ -89,6 +92,42 @@ def main(argv: list[str] | None = None) -> int:
     except _USER_ERRORS as exc:
         print(f"humid-tpu-torch: error: {exc}", file=sys.stderr)
         return 1
+    return 0
+
+
+def _main_distributed(parser, args) -> int:
+    from .parallel import multihost
+    from .parallel.pipeline import run_distributed
+
+    if args.coordinator is None:
+        # Without a coordinator the processes cannot exchange tables;
+        # each would cluster its own range alone.
+        parser.error("--num-processes > 1 requires --coordinator")
+    try:
+        multihost.init_distributed(args.coordinator, args.num_processes,
+                                   args.process_id)
+    except ValueError as exc:
+        parser.error(str(exc))
+    try:
+        run_distributed(
+            args.files,
+            word_length=args.n,
+            distance=args.m,
+            log_name=args.l,
+            dir_name=args.d,
+            run_stats=args.s,
+            write_dedup=args.q,
+            write_annotated=args.a,
+            maximum=args.x,
+            edit=args.e,
+            process_id=args.process_id,
+            num_processes=args.num_processes,
+        )
+    except _USER_ERRORS as exc:
+        print(f"humid-tpu-torch: error: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        multihost.destroy()
     return 0
 
 

@@ -41,6 +41,19 @@ def _edge_sweep(a: torch.Tensor, b: torch.Tensor):
     return sweep
 
 
+def components_tensor(a: np.ndarray, b: np.ndarray, num_nodes: int,
+                      device=None) -> torch.Tensor:
+    """:func:`connected_components_device`'s labels as an int64 tensor
+    left on ``device``."""
+    dev = resolve_device(device)
+    init = torch.arange(num_nodes, dtype=torch.int64, device=dev)
+    if num_nodes == 0 or len(a) == 0:
+        return init
+    ea = torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+    eb = torch.from_numpy(np.ascontiguousarray(b, np.int64)).to(dev)
+    return propagate(_edge_sweep(ea, eb), init)
+
+
 def connected_components_device(a: np.ndarray, b: np.ndarray,
                                 num_nodes: int, device=None) -> np.ndarray:
     """Component labels (the smallest node index in each component) of an
@@ -50,11 +63,7 @@ def connected_components_device(a: np.ndarray, b: np.ndarray,
         return np.zeros(0, np.int64)
     if len(a) == 0:
         return np.arange(num_nodes, dtype=np.int64)
-    dev = resolve_device(device)
-    ea = torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
-    eb = torch.from_numpy(np.ascontiguousarray(b, np.int64)).to(dev)
-    init = torch.arange(num_nodes, dtype=torch.int64, device=dev)
-    return propagate(_edge_sweep(ea, eb), init).cpu().numpy()
+    return components_tensor(a, b, num_nodes, device).cpu().numpy()
 
 
 def renumber_components(labels: np.ndarray) -> tuple[np.ndarray, int,

@@ -1,4 +1,5 @@
-from .reader import FastqReader, read_tuples, peek_first_record, FastqBatch
+from .reader import (FastqBatch, FastqReader, peek_first_record, read_tuples,
+                     skip_to_record)
 from .writer import FastqWriter, build_records, build_records_annotated
 from .names import add_dir, make_file_name, make_file_names
 
@@ -7,6 +8,7 @@ __all__ = [
     "FastqBatch",
     "read_tuples",
     "peek_first_record",
+    "skip_to_record",
     "FastqWriter",
     "build_records",
     "build_records_annotated",

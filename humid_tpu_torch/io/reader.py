@@ -267,7 +267,8 @@ class FastqReader:
     """Chunked FastQ reader yielding :class:`FastqBatch` objects."""
 
     def __init__(self, path: str, chunk_bytes: int = 32 * 1024 * 1024,
-                 frame_workers: int = 4, prefix_k: int = 0):
+                 frame_workers: int = 4, prefix_k: int = 0,
+                 start_offset: int = 0):
         self.path = path
         self.chunk_bytes = chunk_bytes
         self.frame_workers = frame_workers
@@ -276,6 +277,11 @@ class FastqReader:
         # saves a scattered re-walk of the buffer.
         self.prefix_k = (prefix_k
                          if _scan_frames_prefix_native is not None else 0)
+        # Byte offset (in decompressed stream coordinates) to start
+        # framing from; it must point at a record boundary
+        # (skip_to_record).  Lets a host-range reader skip the records
+        # before its range without framing them.
+        self.start_offset = start_offset
 
     # Gzip files up to this COMPRESSED size are inflated in one
     # libdeflate call (2-3x faster than streaming zlib) and framed by
@@ -298,7 +304,8 @@ class FastqReader:
                     mm = _mmap.mmap(f.fileno(), 0, prot=_mmap.PROT_READ)
                 except (ValueError, OSError):
                     return None  # empty file or unmappable stream
-                return np.frombuffer(mm, np.uint8)
+                full = np.frombuffer(mm, np.uint8)
+                return full[self.start_offset:] if self.start_offset else full
             import os as _os
 
             if _os.fstat(f.fileno()).st_size <= self._GZ_ONESHOT_MAX:
@@ -309,7 +316,9 @@ class FastqReader:
                 f.seek(0)
                 raw = gzip_decompress(f.read())
                 if raw is not None:
-                    return np.frombuffer(raw, np.uint8)
+                    full = np.frombuffer(raw, np.uint8)
+                    return (full[self.start_offset:]
+                            if self.start_offset else full)
             return None
         finally:
             f.close()
@@ -395,6 +404,10 @@ class FastqReader:
 
     def _batches_sequential(self) -> Iterator[FastqBatch]:
         stream = _open_stream(self.path)
+        if self.start_offset:
+            # Decompressed-coordinate seek (gzip.GzipFile inflates up to
+            # the target; plain files seek directly).
+            stream.seek(self.start_offset)
         if isinstance(stream, gzip.GzipFile) and self.frame_workers > 1:
             stream = _Readahead(stream, self.chunk_bytes)
         leftover = b""
@@ -442,6 +455,48 @@ class FastqReader:
                                                  self.prefix_k))
         finally:
             stream.close()
+
+
+def iter_chunk_newline_counts(stream, chunk_bytes: int = 32 * 1024 * 1024):
+    """Yield (chunk bytes, newline count) over a byte stream: the shared
+    inner loop of record counting and offset scans (the native counter
+    when the extension is built)."""
+    while True:
+        data = stream.read(chunk_bytes)
+        if not data:
+            return
+        if _count_newlines_native is not None:
+            yield data, int(_count_newlines_native(
+                np.frombuffer(data, np.uint8)))
+        else:
+            yield data, data.count(b"\n")
+
+
+def skip_to_record(path: str, k: int) -> int | None:
+    """Byte offset of record ``k`` in a plain (non-gzip) FastQ file: the
+    position just after the ``4*k``-th newline (valid FastQ is strictly
+    4 lines a record, the framer's own rule).  A raw newline-count scan,
+    cheaper than framing; None for gzip inputs or files with fewer than
+    ``k`` records (callers then frame from the start)."""
+    if k <= 0:
+        return 0
+    if is_gzip_file(path):
+        return None
+    need = 4 * k
+    seen = 0
+    base = 0
+    try:
+        with open(path, "rb") as f:
+            for chunk, n in iter_chunk_newline_counts(f):
+                if seen + n >= need:
+                    buf = np.frombuffer(chunk, np.uint8)
+                    pos = np.flatnonzero(buf == _NEWLINE)[need - seen - 1]
+                    return base + int(pos) + 1
+                seen += n
+                base += len(chunk)
+    except OSError:
+        return None
+    return None  # fewer than k records
 
 
 def is_gzip_file(path: str) -> bool:
@@ -536,14 +591,17 @@ def _concat_batches(batches: list[FastqBatch]) -> FastqBatch:
 def _read_tuples_sync(
     files: Sequence[str], batch_records: int,
     prefix_ks: Sequence[int] | None = None,
+    start_offsets: Sequence[int] | None = None,
 ) -> Iterator[list[FastqBatch]]:
     # Split the framing pool across the lockstep files so n_files
     # concurrent readers don't oversubscribe the host.
     workers = max(2, 4 // max(1, len(files)))
     ks = list(prefix_ks) if prefix_ks is not None else [0] * len(files)
+    offs = (list(start_offsets) if start_offsets is not None
+            else [0] * len(files))
     cursors = [_BatchCursor(FastqReader(f, frame_workers=workers,
-                                        prefix_k=k))
-               for f, k in zip(files, ks)]
+                                        prefix_k=k, start_offset=o))
+               for f, k, o in zip(files, ks, offs)]
     while True:
         # Natural (chunk-aligned) sizes make take() a zero-copy view split
         # for at least one cursor and avoid cross-chunk concatenation;
@@ -559,6 +617,7 @@ def read_tuples(
     files: Sequence[str], batch_records: int = 1 << 19,
     prefetch: int = 2,
     prefix_ks: Sequence[int] | None = None,
+    start_offsets: Sequence[int] | None = None,
 ) -> Iterator[list[FastqBatch]]:
     """Lockstep iteration over multiple FastQ files in batches.
 
@@ -570,12 +629,17 @@ def read_tuples(
     ``prefix_ks`` (one k per file) requests the fused sequence-prefix
     gather: each yielded batch then carries ``FastqBatch.prefix``.
 
+    ``start_offsets`` (one byte offset per file, from
+    :func:`skip_to_record`) starts framing mid-file, so a host-range
+    reader skips the records before its range.
+
     Batches are produced by a background thread (``prefetch`` queue depth)
     so decompression + framing overlap the consumer's packing/writing —
     both sides spend their time in GIL-releasing C calls.
     """
     if prefetch <= 0:
-        yield from _read_tuples_sync(files, batch_records, prefix_ks)
+        yield from _read_tuples_sync(files, batch_records, prefix_ks,
+                                     start_offsets)
         return
 
     import queue as _queue
@@ -587,7 +651,8 @@ def read_tuples(
 
     def worker():
         try:
-            for item in _read_tuples_sync(files, batch_records, prefix_ks):
+            for item in _read_tuples_sync(files, batch_records, prefix_ks,
+                                          start_offsets):
                 while not stop.is_set():
                     try:
                         q.put(item, timeout=0.1)

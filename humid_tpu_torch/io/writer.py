@@ -138,11 +138,14 @@ class FastqWriter:
     :func:`compress_member` and pipeline._pipelined_write).
     """
 
-    def __init__(self, path: str, compression: int = 4):
-        """Gzip output when ``path`` ends in ``.gz``."""
+    def __init__(self, path: str, compression: int = 4,
+                 compress: bool | None = None):
+        """Gzip output when ``compress``, or with ``compress`` None when
+        ``path`` ends in ``.gz`` (a part file of a multi-process run,
+        ``<final>.partNNNNN``, hides its final name's suffix)."""
         self.path = path
         self.compression = compression
-        self.is_gz = path.endswith(".gz")
+        self.is_gz = path.endswith(".gz") if compress is None else compress
         self._f = open(path, "wb")
         self._wrote = False
 

@@ -293,7 +293,9 @@ class FusedPipeline:
     def __init__(self, feeder: DeviceFeeder, n_total: int,
                  filtered: np.ndarray, *, word_length: int, max_dist: int,
                  want_inverse: bool, want_labels: bool = False,
-                 d_cap: int = 8, run_cap: int = 2048, tile: int = 2048):
+                 d_cap: int = 8, run_cap: int = 2048, tile: int = 2048,
+                 shard: tuple[int, int] | None = None,
+                 owned: np.ndarray | None = None):
         self.feeder = feeder
         self.device = feeder.device
         self.w = feeder.w
@@ -305,6 +307,10 @@ class FusedPipeline:
         self.d_cap = d_cap
         self.run_cap = run_cap
         self.tile = tile
+        # Host shard of the device runs engine: the part and, per
+        # partition and table row, whether it owns the row's run.
+        self.shard = shard
+        self.owned = owned
         self.k = 0
         self.uniq: np.ndarray | None = None
         self._matches = None
@@ -321,7 +327,10 @@ class FusedPipeline:
         """The pipeline past program A, over ``packed`` [u, w] uint32, an
         ascending unique table on the host (the device runs engine): the
         table goes up once through a feeder, padded with all-ones rows, and
-        ``neighbors()`` runs programs B and C on it."""
+        ``neighbors()`` runs programs B and C on it.  ``opts`` may hold
+        ``shard`` and ``owned`` ([n_seg, u] bool, the rows whose run the
+        shard owns in each partition): then ``neighbors()`` returns the
+        part's pairs."""
         u, w = packed.shape
         feeder = DeviceFeeder(w, u, device=device, chunk_rows=u)
         feeder.push(packed)
@@ -398,19 +407,25 @@ class FusedPipeline:
         orders, runbits_d, hist_d, big_d = _fused_partitions(
             table, k, seg_np, d_cap=self.d_cap, run_cap=self.run_cap)
         self._orders = orders
+        owned_d = None
+        if self.owned is not None:
+            pad = np.zeros((n_seg, u_pad), bool)
+            pad[:, :k] = self.owned
+            owned_d = to_device(pad, dev)
         # The base sweeps (d <= 2) are wanted at every d_max: launched
         # before the histogram is read, so that wait rides behind them.
         d_base = min(2, self.d_cap)
         base_bm, base_mt = _runs_eval(table, orders, seg_masks, k,
                                       self.max_dist, d_hi=d_base,
-                                      with_matches=self.want_labels)
+                                      with_matches=self.want_labels,
+                                      owned=owned_d)
         hist, big_rows, runbits = to_host(hist_d, big_d, runbits_d)
         if int(big_rows.sum()) > k:
             info.update(decode="dense", dense_fallbacks=1)
             return find_neighbor_pairs(self.table(), self.max_dist,
                                        word_length=self.word_length,
                                        tile=self.tile, strategy="dense",
-                                       device=dev)
+                                       device=dev, shard=self.shard)
         # A power of two up to d_cap, grown until the runs longer than
         # d_max + 1 hold under 2% of the table; never below the base.
         d_max = 1
@@ -423,7 +438,8 @@ class FusedPipeline:
             ext_bm, ext_mt = _runs_eval(table, orders, seg_masks, k,
                                         self.max_dist, d_lo=d_base + 1,
                                         d_hi=d_max,
-                                        with_matches=self.want_labels)
+                                        with_matches=self.want_labels,
+                                        owned=owned_d)
             bitmaps_d = torch.cat([base_bm, ext_bm], dim=1)
             if self.want_labels:
                 matches = torch.cat([base_mt, ext_mt], dim=1)
@@ -484,6 +500,11 @@ class FusedPipeline:
                 words = words.view(np.uint32)
                 lens = np.concatenate(lens)
                 starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+                if self.owned is not None:
+                    # A run's owner from its first member's row.
+                    part = np.concatenate(q_part)[starts]
+                    keep = self.owned[part, gidx[starts]]
+                    starts, lens = starts[keep], lens[keep]
                 ma, mb, _ = enumerate_run_pairs(
                     words, _combined_u64(words) if self.w <= 2 else None,
                     np.arange(len(words), dtype=np.int64), starts, lens,
@@ -525,6 +546,11 @@ class FusedPipeline:
                 order = (np.arange(k, dtype=np.int64) if p == 0
                          else orders_np[p - 1][:k])
                 mid = (run_len > d_max + 1) & (run_len <= self.run_cap)
+                big = run_len > self.run_cap
+                if self.owned is not None:
+                    own = self.owned[p][order[run_start]]
+                    mid &= own
+                    big &= own
                 if mid.any():
                     ma, mb, _ = enumerate_run_pairs(
                         uniq, word64, order, run_start[mid], run_len[mid],
@@ -533,7 +559,6 @@ class FusedPipeline:
                     parts_b.append(mb)
                     extra_a.append(ma)
                     extra_b.append(mb)
-                big = run_len > self.run_cap
                 if big.any():
                     big_parts.append((p, order, run_start[big],
                                       run_len[big]))

@@ -32,6 +32,15 @@ within ``max_dist``.  So do the engines of the local device mesh
 (:mod:`..parallel`), reached through the strategies ``ring``, ``sharded``
 and ``sharded_bucketed``.
 
+Host sharding (``shard=(part, n_parts)``, the multi-process pipeline of
+:mod:`..parallel.pipeline`): each part computes a slice of the candidate
+work that no other part computes — pigeonhole runs and shifted join keys
+by a salted hash of the key (:func:`_owned_mask`), tile pairs by
+striping — and the deduplicated union of the parts is the unsharded pair
+list.  Every decision that picks a partitioning (the engine, the
+giant-run fallback, the join cap) is made from quantities every part
+sees alike, so the parts' slices tile the whole.
+
 CSR ordering invariant: every node's neighbour list is sorted ascending by
 unique-word index.  This equals the reference's neighbour-list order — the
 lexicographic outer walk (humid.cc:117) appends all lexicographically
@@ -80,6 +89,50 @@ def _empty_pairs():
     return np.zeros(0, np.int64), np.zeros(0, np.int64)
 
 
+_U64 = (1 << 64) - 1
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    """splitmix64 finalizer (vectorized, wrap-around uint64 arithmetic)."""
+    x = x.astype(np.uint64, copy=True)
+    x += np.uint64(0x9E3779B97F4A7C15)
+    x ^= x >> np.uint64(30)
+    x *= np.uint64(0xBF58476D1CE4E5B9)
+    x ^= x >> np.uint64(27)
+    x *= np.uint64(0x94D049BB133111EB)
+    x ^= x >> np.uint64(31)
+    return x
+
+
+def _salt(salt_idx: int) -> int:
+    return ((2 * salt_idx + 1) * 0xD1B54A32D192ED03) & _U64
+
+
+def _owned_mask(key: np.ndarray, shard: tuple[int, int],
+                salt_idx: int) -> np.ndarray:
+    """Host-sharding ownership of a key (a pigeonhole run's, a shifted
+    join's, a component's): ``mix64(key ^ salt) % n_parts == part``.
+
+    An equal-key run belongs to exactly one part, decided by the key
+    itself, so every part derives the same owner without communication:
+    the union of the parts' pair lists is the full pair set, while each
+    part's candidate work is ~1/n_parts.  ``salt_idx`` decorrelates the
+    assignment across partitions, (segment, shift) joins and uses."""
+    part, n_parts = shard
+    salt = np.uint64(_salt(salt_idx))
+    return (_mix64(key ^ salt) % np.uint64(n_parts)) == np.uint64(part)
+
+
+def _check_shard(shard):
+    """``shard`` validated; None for no shard or a single part."""
+    if shard is None:
+        return None
+    part, n_parts = (int(v) for v in shard)
+    if not 0 <= part < n_parts:
+        raise ValueError(f"invalid shard {shard!r}")
+    return None if n_parts == 1 else (part, n_parts)
+
+
 def choose_engine(u: int, max_dist: int, word_length: int | None,
                   runs_threshold: int = 1 << 11,
                   metric: str = "hamming",
@@ -111,12 +164,16 @@ def sweep_tensors(rows: np.ndarray, tile_pairs: np.ndarray,
     return lanes, torch.from_numpy(tp).to(device)
 
 
-def _tile_sweep(rows, tile_pairs, *, tile, u_pad, u, max_dist, device):
+def _tile_sweep(rows, tile_pairs, *, tile, u_pad, u, max_dist, device,
+                ids=None):
     """Sweep ``tile_pairs`` over ``rows`` (partitions of ``u_pad`` rows,
-    the first ``u`` of each real); (a, b) int64 numpy, sorted."""
+    the first ``u`` of each real), with the run-id mask of ``ids`` ([N]
+    int32 numpy) if given; (a, b) int64 numpy, sorted."""
     lanes, tp = sweep_tensors(rows, tile_pairs, device)
+    if ids is not None:
+        ids = torch.from_numpy(ids).to(device)
     a, b = hamming_tile_pairs(lanes, tp, tile=tile, part_stride=u_pad,
-                              part_valid=u, max_dist=max_dist)
+                              part_valid=u, max_dist=max_dist, ids=ids)
     return a.cpu().numpy(), b.cpu().numpy()
 
 
@@ -146,6 +203,7 @@ def find_neighbor_pairs(
     device: str | torch.device | None = None,
     mesh=None,
     info: dict | None = None,
+    shard: tuple[int, int] | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """All unordered pairs (a, b), a < b, of unique words within
     ``max_dist``.
@@ -187,7 +245,13 @@ def find_neighbor_pairs(
         ``join_cap``, else 0); for the pigeonhole runs engines
         "candidates" (in-run pairs), "dense_fallbacks" (1 if giant runs
         sent the search to the dense sweep, else 0) and, on the device,
-        "d_max" (the sweep depth).
+        "d_max" (the sweep depth); under a shard also "shard".
+      shard: optional (part, n_parts) host shard (module docstring): the
+        part's slice of the candidate work, by the engine's own rule.
+        "auto" under a shard takes host ``runs`` above the size gate (a
+        multi-process run passes the engine every process agreed on);
+        the mesh strategies ignore it and search the whole table.  One
+        part is no shard.
 
     Returns:
       (a, b): int64 arrays with a < b, sorted by (a, b).
@@ -197,6 +261,7 @@ def find_neighbor_pairs(
         raise ValueError(f"unknown metric {metric!r}")
     if metric == "edit" and word_length is None:
         raise ValueError("edit metric requires word_length")
+    shard = _check_shard(shard)
     env_strategy = os.environ.get(STRATEGY_ENV_VAR)
     if env_strategy and strategy == "auto":
         strategy = env_strategy
@@ -205,8 +270,15 @@ def find_neighbor_pairs(
     if auto_chosen:
         strategy = choose_engine(u, max_dist, word_length, runs_threshold,
                                  metric, dev)
+        if shard is not None and strategy not in ("dense", "runs"):
+            # Every part must run the same engine; the calibrated pick of
+            # this process alone is not agreed, so a bare auto keeps the
+            # host engine (a multi-process run broadcasts one).
+            strategy = "runs"
     info = {} if info is None else info
     info.update(metric=metric, strategy=strategy)
+    if shard is not None:
+        info["shard"] = shard
     if metric == "edit" and strategy in ("bucketed", "runs_device"):
         raise ValueError(
             f"{strategy} strategy supports only the hamming metric "
@@ -223,49 +295,74 @@ def find_neighbor_pairs(
         try:
             return find_edit_pairs_shifted(
                 packed, max_dist, word_length=word_length, join_cap=join_cap,
-                device=dev, info=info)
+                device=dev, info=info, shard=shard)
         except JoinCapExceeded:
             if not auto_chosen:
                 raise
             # Degenerate key space: dense is slower but always correct,
-            # like the reference's own exhaustive walk.
+            # like the reference's own exhaustive walk.  (Under a shard the
+            # cap is checked before ownership, so every part gets here.)
             info.update(strategy="dense", join_cap_fallbacks=1)
             strategy = "dense"
     if strategy == "bucketed":
         return find_neighbor_pairs_bucketed(
-            packed, max_dist, word_length=word_length, tile=tile, device=dev)
+            packed, max_dist, word_length=word_length, tile=tile, device=dev,
+            shard=shard, info=info)
     if strategy in ("runs", "runs_device"):
         if word_length is None:
             raise ValueError(f"{strategy} strategy requires word_length")
         if strategy == "runs":
             return find_neighbor_pairs_runs(
                 packed, max_dist, word_length=word_length, tile=tile,
-                device=dev, info=info)
+                device=dev, info=info, shard=shard)
         from .runs_device import runs_device_pairs
 
         return runs_device_pairs(packed, max_dist, word_length=word_length,
-                                 tile=tile, device=dev, info=info)
+                                 tile=tile, device=dev, info=info,
+                                 shard=shard)
     if strategy != "dense":
         raise ValueError(f"unknown strategy {strategy!r} for the {metric} "
                          f"metric")
     if metric == "edit":
         return dense_edit_pairs(packed, max_dist, word_length=word_length,
-                                tile=tile, device=dev)
+                                tile=tile, device=dev, shard=shard, info=info)
     rows, tile_pairs, b, u_pad = dense_inputs(packed, tile)
+    tile_pairs = _stripe(tile_pairs, shard, b, info)
+    if not len(tile_pairs):
+        return _empty_pairs()
     return _tile_sweep(rows, tile_pairs, tile=b, u_pad=u_pad, u=u,
                        max_dist=max_dist, device=dev)
 
 
+def _stripe(tile_pairs: np.ndarray, shard, tile: int, info: dict | None):
+    """A part's stripe ``tile_pairs[part::n_parts]`` of a tile-pair list:
+    each unordered pair lies in exactly one tile pair, so the stripes
+    partition the pair set.  ``info`` receives the stripe's evaluations as
+    "candidates"."""
+    if shard is None:
+        return tile_pairs
+    tile_pairs = tile_pairs[shard[0]::shard[1]]
+    if info is not None:
+        info["candidates"] = len(tile_pairs) * tile * tile
+    return tile_pairs
+
+
 def dense_edit_pairs(packed: np.ndarray, max_dist: int, *, word_length: int,
                      tile: int = 2048,
-                     device: str | torch.device | None = None):
+                     device: str | torch.device | None = None,
+                     shard: tuple[int, int] | None = None,
+                     info: dict | None = None):
     """The dense edit scan: every upper-triangular tile pair of the table
     (tiles of at most 512 rows: a pair of tiles holds 2m + 1 band cells
-    per word pair) through the banded-Levenshtein tile scan.  The codes
-    are unpacked once on the device; (a, b) int64 numpy, sorted."""
+    per word pair) through the banded-Levenshtein tile scan, or a shard's
+    stripe of them.  The codes are unpacked once on the device; (a, b)
+    int64 numpy, sorted."""
     dev = resolve_device(device)
     u = len(packed)
     rows, tile_pairs, b, _ = dense_inputs(packed, min(tile, 512))
+    tile_pairs = _stripe(tile_pairs, _check_shard(shard), b, info)
+    if not len(tile_pairs):
+        return _empty_pairs()
     codes = E._unpack(lanes_tensor(rows, dev), word_length)
     a, bb = E.edit_tile_pairs(
         codes, codes, tile_pairs, tile=b, max_dist=max_dist,
@@ -499,6 +596,7 @@ def find_neighbor_pairs_runs(
     tile: int = 2048,
     device: str | torch.device | None = None,
     info: dict | None = None,
+    shard: tuple[int, int] | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Pigeonhole neighbour search by sorted-run enumeration on the host.
 
@@ -517,10 +615,17 @@ def find_neighbor_pairs_runs(
     every pair once instead.  ``info`` receives "candidates" and
     "dense_fallbacks".
 
+    ``shard=(part, n_parts)`` keeps the runs this part owns (the salted
+    hash of the run's key, salt = the partition): the part's candidates
+    are ~1/n_parts of them.  The dense fallback is decided on the row
+    count before ownership, so every part falls back together (and then
+    sweeps its stripe).
+
     Replaces the reference's per-word fuzzy trie walk
     (findHammingNeighbours, humid.cc:113-130).
     """
     info = {} if info is None else info
+    shard = _check_shard(shard)
     u, w = packed.shape
     if u <= 1 or max_dist == 0:
         info.update(candidates=0, dense_fallbacks=0)
@@ -540,12 +645,18 @@ def find_neighbor_pairs_runs(
         order, run_start, run_len = (
             _identity_runs(keys[0]) if p == 0 else _partition_runs(keys[p]))
         small = (run_len >= 2) & (run_len <= run_cap)
+        big = run_len > run_cap
+        # The fallback below must be decided alike on every part: the
+        # row count before ownership.
+        big_rows[p] = int(run_len[big].sum())
+        if shard is not None:
+            owned = _owned_mask(keys[p][order[run_start]], shard, salt_idx=p)
+            small &= owned
+            big &= owned
         parts_a[p], parts_b[p], cand_stat[p] = enumerate_run_pairs(
             packed, word64, order, run_start[small], run_len[small],
             max_dist)
-        big = run_len > run_cap
         if big.any():
-            big_rows[p] = int(run_len[big].sum())
             big_parts.append((p, order, run_start[big], run_len[big]))
 
     # The native sort is parallel over every core already, so partitions
@@ -564,7 +675,8 @@ def find_neighbor_pairs_runs(
         # substitutions): the stacked scan would meet every pair once per
         # partition; one dense sweep meets it once.
         return find_neighbor_pairs(packed, max_dist, word_length=word_length,
-                                   tile=tile, strategy="dense", device=device)
+                                   tile=tile, strategy="dense", device=device,
+                                   shard=shard)
     if big_parts:
         big_parts.sort(key=lambda part: part[0])
         ba, bb = _big_run_pairs(packed, big_parts, max_dist, tile=tile,
@@ -712,6 +824,8 @@ def find_neighbor_pairs_bucketed(
     word_length: int,
     tile: int = 2048,
     device: str | torch.device | None = None,
+    shard: tuple[int, int] | None = None,
+    info: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Subquadratic Hamming neighbour pairs via pigeonhole partitions
     (:func:`bucketed_inputs`).  Words of other runs in the swept tiles
@@ -720,9 +834,16 @@ def find_neighbor_pairs_bucketed(
 
     Complexity per partition ~ O(U/tile) diagonal tiles plus extra tiles
     for runs crossing tile boundaries — versus O((U/tile)^2) dense.
+
+    ``shard=(part, n_parts)`` sweeps the part's stripe of the stacked
+    tile-pair list with the run-id mask on (each pair of a run lies in
+    one tile pair of its partition, so the stripes partition each
+    partition's in-run pairs, and no part sends another part's pairs
+    across the gather).
     """
     if word_length is None:
         raise ValueError("bucketed strategy requires word_length")
+    shard = _check_shard(shard)
     u, w = packed.shape
     if u <= 1 or max_dist == 0:
         # Unique words are pairwise distinct: no pairs at distance 0.
@@ -730,13 +851,37 @@ def find_neighbor_pairs_bucketed(
     dev = resolve_device(device)
     rows, tile_pairs, b, u_pad, orders = bucketed_inputs(
         packed, max_dist, word_length, tile)
+    ids = None
+    if shard is not None:
+        tile_pairs = _stripe(tile_pairs, shard, b, info)
+        if not len(tile_pairs):
+            return _empty_pairs()
+        ids = _stacked_run_ids(rows, u, u_pad, word_length, max_dist + 1)
     pa, pb = _tile_sweep(rows, tile_pairs, tile=b, u_pad=u_pad, u=u,
-                         max_dist=max_dist, device=dev)
+                         max_dist=max_dist, device=dev, ids=ids)
     # Stacked permuted positions -> original unique-word indices.
     ga = orders[pa // u_pad, pa % u_pad]
     gb = orders[pb // u_pad, pb % u_pad]
     # A pair agreeing on k>1 segments appears k times; dedupe + sort.
     return _dedupe_pairs(np.minimum(ga, gb), np.maximum(ga, gb))
+
+
+def _stacked_run_ids(rows: np.ndarray, u: int, u_pad: int, word_length: int,
+                     n_seg: int) -> np.ndarray:
+    """[n_seg * u_pad] int32 run ids of the bucketed engine's stacked rows
+    (each partition sorted by its segment key): equal within a run of
+    equal keys, distinct across runs and partitions; padding rows get -1
+    (the sweep's validity test drops them anyway)."""
+    from .runs_device import segment_lane_masks
+
+    masks = segment_lane_masks(word_length, n_seg, rows.shape[1])
+    ids = np.full(n_seg * u_pad, -1, np.int32)
+    for p in range(n_seg):
+        seg = rows[p * u_pad:p * u_pad + u] & masks[p]
+        new = np.ones(u, bool)
+        new[1:] = (seg[1:] != seg[:-1]).any(axis=1)
+        ids[p * u_pad:p * u_pad + u] = np.cumsum(new) - 1 + p * (u_pad + 1)
+    return ids
 
 
 def _segment_keys_at(packed: np.ndarray, word_length: int, lo: int,
@@ -825,6 +970,19 @@ def _merge_join_numpy(ka_sorted: np.ndarray, oa: np.ndarray,
     return np.minimum(a, b), np.maximum(a, b)
 
 
+def _join_need(ka_sorted, kb_sorted, self_join: bool, join_cap: int,
+               where: str) -> int:
+    """A join's output size from its sorted keys; raises
+    :class:`JoinCapExceeded` above ``join_cap``."""
+    need = _join_size(ka_sorted, kb_sorted, self_join)
+    if need > join_cap:
+        raise JoinCapExceeded(
+            f"shifted-segment join for {where} needs {need} candidate "
+            f"pairs (> join_cap={join_cap}); the key space is degenerate "
+            f"- use strategy='dense' (CLI: {STRATEGY_ENV_VAR}=dense)")
+    return need
+
+
 def _merge_join(ka, oa, kb, ob, self_join: bool, join_cap: int, where: str):
     """One (segment, shift) join: candidate pairs (a, b), a < b, of the
     rows whose keys ``ka[oa]`` and ``kb[ob]`` (``oa``/``ob`` sort them)
@@ -832,12 +990,7 @@ def _merge_join(ka, oa, kb, ob, self_join: bool, join_cap: int, where: str):
     so :class:`JoinCapExceeded` is raised before anything is allocated."""
     ka_sorted = ka[oa]
     kb_sorted = ka_sorted if self_join else kb[ob]
-    need = _join_size(ka_sorted, kb_sorted, self_join)
-    if need > join_cap:
-        raise JoinCapExceeded(
-            f"shifted-segment join for {where} needs {need} candidate "
-            f"pairs (> join_cap={join_cap}); the key space is degenerate "
-            f"- use strategy='dense' (CLI: {STRATEGY_ENV_VAR}=dense)")
+    need = _join_need(ka_sorted, kb_sorted, self_join, join_cap, where)
     if _merge_join_native is None:
         return _merge_join_numpy(ka_sorted, oa, kb_sorted, ob, self_join)
     outa = np.empty(need, np.int64)
@@ -896,6 +1049,7 @@ def find_edit_pairs_shifted(
     join_cap: int | None = None,
     device: str | torch.device | None = None,
     info: dict | None = None,
+    shard: tuple[int, int] | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Subquadratic Levenshtein neighbour pairs via shifted segments.
 
@@ -912,7 +1066,13 @@ def find_edit_pairs_shifted(
     humid.cc:140-158).
 
     A join whose output would exceed ``join_cap`` (degenerate key space,
-    e.g. all words sharing a segment) raises :class:`JoinCapExceeded`."""
+    e.g. all words sharing a segment) raises :class:`JoinCapExceeded`.
+
+    ``shard=(part, n_parts)`` keeps the join keys this part owns (salt:
+    the (segment, shift) index): equal keys have one owner, so each
+    candidate comes from one part per join.  The cap is checked on the
+    whole join first, so every part raises together."""
+    shard = _check_shard(shard)
     u, w = packed.shape
     if u <= 1 or max_dist == 0:
         return _empty_pairs()
@@ -921,8 +1081,15 @@ def find_edit_pairs_shifted(
     info = {} if info is None else info
     parts_a, parts_b = [], []
     for s, d, ka, oa, kb, ob in shifted_joins(packed, max_dist, word_length):
-        a, b = _merge_join(ka, oa, kb, ob, d == 0, join_cap,
-                           f"(segment {s}, shift {d})")
+        where = f"(segment {s}, shift {d})"
+        if shard is not None:
+            ka_sorted = ka[oa]
+            _join_need(ka_sorted, ka_sorted if d == 0 else kb[ob], d == 0,
+                       join_cap, where)
+            salt = s * (2 * max_dist + 1) + d + max_dist
+            oa = oa[_owned_mask(ka, shard, salt)[oa]]
+            ob = oa if d == 0 else ob[_owned_mask(kb, shard, salt)[ob]]
+        a, b = _merge_join(ka, oa, kb, ob, d == 0, join_cap, where)
         parts_a.append(a)
         parts_b.append(b)
     a = np.concatenate(parts_a)

@@ -63,7 +63,8 @@ def pack_bits(flags: torch.Tensor) -> torch.Tensor:
 
 def _runs_eval(lanes: torch.Tensor, orders: torch.Tensor | None,
                seg_masks: torch.Tensor, n_valid: int, max_dist: int, *,
-               d_hi: int, d_lo: int = 1, with_matches: bool = False):
+               d_hi: int, d_lo: int = 1, with_matches: bool = False,
+               owned: torch.Tensor | None = None):
     """Offset-shift in-run Hamming evaluation (the fused route's program C
     too).
 
@@ -74,6 +75,10 @@ def _runs_eval(lanes: torch.Tensor, orders: torch.Tensor | None,
     orders: [n_seg - 1, N] int64 sorted orders of partitions 1..m (the
       device gathers the permuted rows itself), or None when n_seg == 1.
     seg_masks: [n_seg, w] int32 segment bit masks (:func:`segment_lane_masks`).
+    owned: optional [n_seg, N] bool by table row: whether this host shard
+      owns the row's run in partition p (:func:`.neighbors._owned_mask`
+      of its segment key, which every member of a run shares); a pair is
+      kept only where its first member's run is owned.
 
     Returns (bitmaps, matches): bitmaps [n_seg, d_hi - d_lo + 1, N/8]
     uint8 (:func:`pack_bits`), bit i of (p, d - d_lo) set iff sorted
@@ -94,6 +99,9 @@ def _runs_eval(lanes: torch.Tensor, orders: torch.Tensor | None,
     iota = torch.arange(n, device=dev)
     for p in range(n_seg):
         r = lanes if p == 0 else lanes[orders[p - 1]]
+        own = None
+        if owned is not None:
+            own = owned[p] if p == 0 else owned[p][orders[p - 1]]
         mask_p = seg_masks[p]
         for d in range(d_lo, d_hi + 1):
             if d >= n:
@@ -104,8 +112,10 @@ def _runs_eval(lanes: torch.Tensor, orders: torch.Tensor | None,
             pair = m[:, 0::2].clone()
             pair[:, :w // 2] |= m[:, 1::2] << 1
             dist = popcount32(pair).sum(dim=1)
-            matches[p, d - d_lo, :n - d] = (
-                in_run & (dist <= max_dist) & (iota[:n - d] < n_valid - d))
+            hit = in_run & (dist <= max_dist) & (iota[:n - d] < n_valid - d)
+            if own is not None:
+                hit &= own[:n - d]
+            matches[p, d - d_lo, :n - d] = hit
     return pack_bits(matches), (matches if with_matches else None)
 
 
@@ -126,6 +136,7 @@ def runs_device_pairs(
     tile: int = 2048,
     device: str | torch.device | None = None,
     info: dict | None = None,
+    shard: tuple[int, int] | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Pigeonhole neighbour search with the partitions and the in-run
     pairs evaluated on ``device``.
@@ -142,17 +153,26 @@ def runs_device_pairs(
     under 2% of the table); runs longer than ``run_cap`` take the big-run
     tile sweep, and giant runs the dense sweep.  ``info`` receives
     "candidates", "dense_fallbacks", "d_max" and "decode".
+
+    ``shard=(part, n_parts)`` keeps the runs this part owns, by the host
+    engine's rule: the ownership of each row's run is hashed here from
+    the segment keys and goes up with the table (program C masks the
+    sweeps with it, the host the mid and big runs).  The depth, the
+    decode and the dense fallback are decided before ownership, alike on
+    every part; "candidates" counts the runs before ownership.
     """
     from .fused import FusedPipeline
-    from .neighbors import (_empty_pairs, _segment_run_ids,
-                            find_neighbor_pairs_runs)
+    from .neighbors import (_check_shard, _empty_pairs, _owned_mask,
+                            _segment_run_ids, find_neighbor_pairs_runs)
 
     info = {} if info is None else info
+    shard = _check_shard(shard)
     if len(packed) <= 1 or max_dist == 0:
         info.update(candidates=0, dense_fallbacks=0, d_max=0)
         return _empty_pairs()
     dev = resolve_device(device)
-    key0 = _segment_run_ids(packed, word_length, max_dist + 1)[0]
+    keys = _segment_run_ids(packed, word_length, max_dist + 1)
+    key0 = keys[0]
     if not np.all(key0[1:] >= key0[:-1]):
         # The sweep takes partition 0 in the table's own order; a table
         # that does not ascend (outside the contract) goes to the host
@@ -160,10 +180,15 @@ def runs_device_pairs(
         return find_neighbor_pairs_runs(packed, max_dist,
                                         word_length=word_length,
                                         run_cap=run_cap, tile=tile,
-                                        device=dev, info=info)
+                                        device=dev, info=info, shard=shard)
+    owned = None
+    if shard is not None:
+        owned = np.stack([_owned_mask(k, shard, salt_idx=p)
+                          for p, k in enumerate(keys)])
     fp = FusedPipeline.from_table(packed, word_length=word_length,
                                   max_dist=max_dist, device=dev, d_cap=d_cap,
-                                  run_cap=run_cap, tile=tile)
+                                  run_cap=run_cap, tile=tile, shard=shard,
+                                  owned=owned)
     got: dict = {}
     pairs = fp.neighbors(info=got)
     info.update({k: got[k] for k in ("candidates", "dense_fallbacks", "d_max",

@@ -328,31 +328,14 @@ def _count(sh: _Shard) -> int:
     return int(sh.buf.counter.item())
 
 
-def sharded_neighbor_pairs_ring(
-    packed: np.ndarray,
-    max_dist: int,
-    *,
-    word_length: int | None = None,
-    mesh=None,
-    cap_row: int = 16,
-    block_cap: int | None = None,
-    device: str | torch.device | None = None,
-) -> tuple[np.ndarray, np.ndarray]:
-    """Mesh Hamming neighbour pairs through the ring kernel: (a, b) int64,
-    a < b, sorted by (a, b), the contract of ``find_neighbor_pairs`` and
-    of the reference's ``sharded_neighbor_pairs_pallas_ring``.
-
-    ``mesh`` is a tuple of devices, one per shard (default:
-    ``data_mesh(device=device)``).  A per-shard block above ``block_cap``
-    (default 2^22 rows) raises :class:`RingLimitExceeded`.  ``cap_row``
-    and ``word_length`` are accepted for the reference's signature and
-    ignored: the kernel's output has no per-row cap."""
-    del cap_row, word_length
-    mesh = mesh or data_mesh(device=device)
+def ring_shard_keys(packed: np.ndarray, max_dist: int, *, mesh,
+                    block_cap: int | None = None) -> list[torch.Tensor]:
+    """Run the whole ring over ``packed`` [u, w] (u >= 2) on ``mesh``:
+    each shard's pairs as int64 keys a * u + b, a < b, in the order of its
+    atomics, left on the shard's device.  Raises
+    :class:`RingLimitExceeded` for a block above ``block_cap``."""
     d = len(mesh)
     u, w = packed.shape
-    if u <= 1 or max_dist == 0:
-        return np.zeros(0, np.int64), np.zeros(0, np.int64)
     if u >= 1 << 31:
         raise ValueError(f"{u} rows: pair keys need u < 2^31")
     b = -(-u // d)
@@ -384,7 +367,7 @@ def sharded_neighbor_pairs_ring(
                 _step(ring.slots[0], ring.slots[s], shards[me].buf,
                       **step_kw(me, q, upper_only))
 
-    parts = []
+    keys = []
     for me, sh in enumerate(shards):
         n = _count(sh)
         if n > len(sh.buf.keys):
@@ -395,7 +378,36 @@ def sharded_neighbor_pairs_ring(
                 if me2 == me and emits:
                     _step(sh.ring.slots[0], sh.ring.slots[s], sh.buf,
                           **step_kw(me, q, upper_only))
-        parts.append(sh.buf.keys[:n].cpu().numpy())
+        keys.append(sh.buf.keys[:n])
+    return keys
+
+
+def sharded_neighbor_pairs_ring(
+    packed: np.ndarray,
+    max_dist: int,
+    *,
+    word_length: int | None = None,
+    mesh=None,
+    cap_row: int = 16,
+    block_cap: int | None = None,
+    device: str | torch.device | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Mesh Hamming neighbour pairs through the ring kernel: (a, b) int64,
+    a < b, sorted by (a, b), the contract of ``find_neighbor_pairs`` and
+    of the reference's ``sharded_neighbor_pairs_pallas_ring``.
+
+    ``mesh`` is a tuple of devices, one per shard (default:
+    ``data_mesh(device=device)``).  A per-shard block above ``block_cap``
+    (default 2^22 rows) raises :class:`RingLimitExceeded`.  ``cap_row``
+    and ``word_length`` are accepted for the reference's signature and
+    ignored: the kernel's output has no per-row cap."""
+    del cap_row, word_length
+    mesh = mesh or data_mesh(device=device)
+    u = len(packed)
+    if u <= 1 or max_dist == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    parts = [k.cpu().numpy() for k in ring_shard_keys(
+        packed, max_dist, mesh=mesh, block_cap=block_cap)]
     # Shards emit disjoint sets of keys a * u + b in the order of their
     # atomics; one sort on the host merges them into the (a, b) order.
     key = np.sort(np.concatenate(parts))

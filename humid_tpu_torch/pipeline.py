@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import mmap as _mmap
 import os
+import re
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -579,6 +580,12 @@ def run(
     return res
 
 
+def part_final_name(name: str) -> str:
+    """The final output name of a multi-process part file
+    ``<final>.partNNNNN`` (any other name unchanged)."""
+    return re.sub(r"\.part\d{5}$", "", name)
+
+
 def _pipelined_write(source, names, build_one,
                      build_workers: int | None = None):
     """Drive an output pass with builds overlapped against writes.
@@ -591,7 +598,10 @@ def _pipelined_write(source, names, build_one,
     completed payloads in order; bounded in-flight futures keep memory
     proportional to the pool size.
     """
-    writers = [FastqWriter(n) for n in names]
+    # Compression follows the final name: a multi-process part file
+    # ("<final>.partNNNNN") hides its .gz suffix.
+    writers = [FastqWriter(n, compress=part_final_name(n).endswith(".gz"))
+               for n in names]
     if build_workers is None:
         # Gzip outputs spend their time in member compression — give
         # them the whole pool; plain outputs are gather-bound.
@@ -675,13 +685,21 @@ def _span_tables_from_accs(span_accs, expected_entries: int):
 
 def _write_selected_spans(files, dir_name, suffix, selected, span_tables,
                           chunk: int = 1 << 19):
-    """Second pass via cached record spans: write the SELECTED records to
-    the reference-named outputs by mmapping each (plain) input and
-    concatenating only the selected records' raw bytes — no re-framing scan of the input.  Raw spans equal the
+    """Second pass via cached record spans, to the reference-named
+    outputs (:func:`_write_selected_spans_to`)."""
+    _write_selected_spans_to(files, make_file_names(list(files), dir_name,
+                                                    suffix),
+                             selected, span_tables, chunk=chunk)
+
+
+def _write_selected_spans_to(files, names, selected, span_tables,
+                             chunk: int = 1 << 19):
+    """Write the SELECTED records to ``names`` via cached record spans:
+    mmap each (plain) input and concatenate only the selected records'
+    raw bytes — no re-framing scan of the input.  Raw spans equal the
     canonical 4-line records because span collection verified LF-only
     line endings (``_span_batch_part``); a final record missing its
     trailing newline gets one appended, matching build_records."""
-    names = make_file_names(list(files), dir_name, suffix)
     fulls = []
     handles = []
     try:

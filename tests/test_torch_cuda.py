@@ -704,3 +704,146 @@ def test_cli_on_cuda_matches_humid_ref(n_files, umi, extra, gen_kw,
         for name in names:
             assert _read(tmp_path / "ref" / name) == \
                 _read(tmp_path / out / name), name
+
+
+# -- the multi-process layer and the mesh labels on the card -------------
+
+@pytest.mark.parametrize("n_parts", [2, 3])
+def test_cluster_sharded_local_on_cuda_matches_cpu(n_parts, cuda_device):
+    """The extension-less local cluster step with its components on the
+    card gives each process the CPU's arrays."""
+    from humid_tpu_torch.ops import pairs_to_csr
+    from humid_tpu_torch.parallel.cluster import _local_subgraph
+
+    rng = np.random.default_rng(n_parts)
+    u = 50_000
+    a = rng.integers(0, u, 40_000)
+    b = np.minimum(u - 1, a + rng.integers(1, 30, 40_000))
+    pa, pb = N._dedupe_pairs(a, b)
+    keep = pa != pb
+    pa, pb = pa[keep], pb[keep]
+    counts = rng.integers(1, 50, u).astype(np.int64)
+    indptr, indices = pairs_to_csr(pa, pb, u)
+    for part in range(n_parts):
+        kw = dict(maximum=False, shard=(part, n_parts))
+        got = _local_subgraph(counts, indptr, indices, pa, pb,
+                              device=cuda_device, **kw)
+        want = _local_subgraph(counts, indptr, indices, pa, pb,
+                               device="cpu", **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("engine", ["bucketed", "dense"])
+def test_tile_pair_stripes_on_cuda_match_cpu(engine, cuda_device):
+    """Each part's stripe of tile pairs through K1 on the card (the
+    bucketed engine with its run-id mask) equals the CPU's plain version,
+    and the parts tile the whole pair list."""
+    uniq = unique_words(_words(np.random.default_rng(5), 20_000, 24,
+                               pool=2_000), want_inverse=False)[0]
+    kw = dict(word_length=24, strategy=engine, tile=512)
+    full = N.find_neighbor_pairs(uniq, 1, device=cuda_device, **kw)
+    parts = []
+    for p in range(3):
+        launches = K.LAUNCHES
+        got = N.find_neighbor_pairs(uniq, 1, device=cuda_device,
+                                    shard=(p, 3), **kw)
+        assert K.LAUNCHES > launches
+        want = N.find_neighbor_pairs(uniq, 1, device="cpu", shard=(p, 3),
+                                     **kw)
+        for g, w_ in zip(got, want):
+            np.testing.assert_array_equal(g, w_)
+        parts.append(got)
+    union = N._dedupe_pairs(np.concatenate([x[0] for x in parts]),
+                            np.concatenate([x[1] for x in parts]))
+    for g, w_ in zip(union, full):
+        np.testing.assert_array_equal(g, w_)
+
+
+@pytest.mark.parametrize("engine", ["runs", "runs_device"])
+def test_owned_big_runs_on_cuda_match_cpu(engine, cuda_device):
+    """run_cap = 12: the owned big runs go through K1 with the run-id mask
+    on the card; each part equals the CPU's."""
+    base = np.random.default_rng(7).integers(0, 4, (40, 24), dtype=np.uint8)
+    rng = np.random.default_rng(8)
+    codes = base[rng.integers(0, 40, 1500)].copy()
+    flip = np.flatnonzero(rng.random(1500) < 0.8)
+    codes[flip, rng.integers(0, 24, len(flip))] = rng.integers(
+        0, 4, len(flip), dtype=np.uint8)
+    uniq = unique_words(W.pack_words(codes), want_inverse=False)[0]
+    fn = (N.find_neighbor_pairs_runs if engine == "runs"
+          else RD.runs_device_pairs)
+    for p in range(2):
+        launches = K.LAUNCHES
+        got = fn(uniq, 1, word_length=24, run_cap=12, tile=256,
+                 device=cuda_device, shard=(p, 2))
+        assert K.LAUNCHES > launches
+        want = fn(uniq, 1, word_length=24, run_cap=12, tile=256,
+                  device="cpu", shard=(p, 2))
+        for g, w_ in zip(got, want):
+            np.testing.assert_array_equal(g, w_)
+
+
+@pytest.mark.parametrize("node_sharded", [False, True])
+@pytest.mark.parametrize("d", [1, 4])
+def test_distributed_components_on_cuda_match_cpu(d, node_sharded,
+                                                  cuda_device):
+    rng = np.random.default_rng(d)
+    n = 80_000
+    a = rng.integers(0, n, 50_000)
+    b = np.minimum(n - 1, a + rng.integers(1, 20_000, 50_000))
+    got = P.distributed_components(a, b, n, mesh=P.data_mesh(d, cuda_device),
+                                   node_sharded=node_sharded)
+    want = P.distributed_components(a, b, n, mesh=P.data_mesh(d, "cpu"),
+                                    node_sharded=node_sharded)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, connected_components_device(
+        a, b, n, device="cpu"))
+
+
+def test_dedup_step_on_cuda_matches_cpu(cuda_device):
+    uniq = unique_words(_words(np.random.default_rng(9), 20_000, 24,
+                               pool=3_000), want_inverse=False)[0]
+    launches = R.LAUNCHES
+    got, counts = P.dedup_step(uniq, 1, mesh=P.data_mesh(4, cuda_device))
+    assert R.LAUNCHES > launches
+    want, want_counts = P.dedup_step(uniq, 1, mesh=P.data_mesh(4, "cpu"))
+    np.testing.assert_array_equal(got, want)
+    assert counts.sum() == want_counts.sum()
+
+
+def test_cli_two_processes_on_cuda_match_single_process(cuda_device,
+                                                        tmp_path):
+    """Two CLI processes in a gloo group on the one card (each a CUDA
+    context of its own) write the single-process CLI's bytes."""
+    import socket
+
+    gen_dataset(np.random.default_rng(3), str(tmp_path), n_reads=4000,
+                n_files=2, umi_style="underscore")
+    files = [str(tmp_path / f"file{i}.fastq") for i in range(2)]
+    env = dict(os.environ, HUMID_TPU_TORCH_DEVICE="cuda",
+               HUMID_TPU_TORCH_CALIBRATION="off")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "humid_tpu_torch", "-s", "-a", "-l",
+           os.devnull]
+    procs = [subprocess.Popen(cmd + ["-d", str(tmp_path / "one"), *files],
+                              env=env, stderr=subprocess.PIPE)]
+    procs += [subprocess.Popen(
+        cmd + ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+               "--process-id", str(p), "-d", str(tmp_path / "two"), *files],
+        env=env, stderr=subprocess.PIPE) for p in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err.decode()[-2000:]
+    names = sorted(os.listdir(tmp_path / "one"))
+    assert names == sorted(os.listdir(tmp_path / "two"))
+    for name in names:
+        assert _read(tmp_path / "one" / name) == \
+            _read(tmp_path / "two" / name), name

@@ -573,3 +573,91 @@ def test_partition_runs_matches_reference():
     key = rng.integers(0, 50, 1000).astype(np.uint64)
     for got, want in zip(N._partition_runs(key), JN._partition_runs(key)):
         np.testing.assert_array_equal(got, want)
+
+
+# -- connected components over the mesh, and the mesh dedup step --------
+
+@pytest.fixture(scope="module")
+def graph():
+    """70,000 nodes (past the node-sharded default of 2^16), random edges
+    that reach across every shard's node range (boundary messages in
+    every bucket) and a 3,000-edge chain of stride 17 (a component of
+    large diameter): 30,133 components."""
+    rng = np.random.default_rng(3)
+    n = 70_000
+    a = rng.integers(0, n, 40_000)
+    b = np.minimum(n - 1, a + rng.integers(1, 30_000, 40_000))
+    chain = np.arange(3_000)
+    return np.concatenate([a, chain]), np.concatenate([b, chain + 17]), n
+
+
+@pytest.mark.parametrize("node_sharded", [False, True, None],
+                         ids=["replicated", "node_sharded", "default"])
+@pytest.mark.parametrize("d", [1, 3, 4])
+def test_distributed_components_match_reference(graph, d, node_sharded):
+    """Labels, node for node, against the JAX package's on its mesh; by
+    default the port runs the replicated variant, the reference the
+    node-sharded one past 2^16 nodes on several shards."""
+    a, b, n = graph
+    want = JP.distributed_components(a, b, n, mesh=JP.data_mesh(d),
+                                     node_sharded=node_sharded)
+    kw = {} if node_sharded is None else {"node_sharded": node_sharded}
+    got = P.distributed_components(a, b, n, mesh=_cpu_mesh(d), **kw)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int64
+
+
+def test_node_shard_inputs_match_reference_prep(graph):
+    """The node-sharded host prep is the reference's: every cross edge is
+    a message in both directions, slot for slot on both sides."""
+    a, b, n = graph
+    us, ea, eb, msg_src, recv_dst = P.labelprop.node_shard_inputs(a, b, n, 4)
+    assert us == 17_504 and ea.shape == eb.shape
+    sent = (msg_src >= 0).sum()
+    assert sent == (recv_dst < us).sum() == 2 * int(
+        ((a // us) != (b // us)).sum())
+    assert ((msg_src >= 0) == (recv_dst.transpose(1, 0, 2) < us)).all()
+
+
+@pytest.mark.parametrize("n", [0, 1, 9])
+def test_distributed_components_small(n):
+    a = np.arange(max(n - 1, 0))[::2]
+    want = np.arange(n)
+    want[a + 1] = a
+    for node_sharded in (False, True):
+        got = P.distributed_components(a, a + 1, n, mesh=_cpu_mesh(3),
+                                       node_sharded=node_sharded)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def dedup_table():
+    """4,974 uniques: on one shard the reference's ring block spans three
+    2,048-row tiles (nine tile pairs)."""
+    return _uniq(_dataset(np.random.default_rng(1), 7000, 24, pool=900))
+
+
+@pytest.mark.parametrize("d", [1, 3, 4])
+def test_dedup_step_matches_reference(dedup_table, d):
+    """Labels against the JAX dedup_step on its mesh and against the
+    components of the host engine's pairs; the per-shard pair counts sum to the
+    reference's per-tile counts."""
+    from humid_tpu_torch.cluster import connected_components_device
+
+    want, tile_counts = JP.dedup_step(dedup_table, 1, mesh=JP.data_mesh(d))
+    got, shard_pairs = P.dedup_step(dedup_table, 1, mesh=_cpu_mesh(d))
+    np.testing.assert_array_equal(got, want)
+    pa, pb = N.find_neighbor_pairs(dedup_table, 1, word_length=24,
+                                   strategy="runs", device="cpu")
+    np.testing.assert_array_equal(
+        got, connected_components_device(pa, pb, len(dedup_table), "cpu"))
+    assert len(shard_pairs) == d
+    assert shard_pairs.sum() == tile_counts[:, 0].sum() == len(pa)
+
+
+def test_dedup_step_trivial_tables():
+    for u in (0, 1):
+        labels, counts = P.dedup_step(np.zeros((u, 2), np.uint32), 1,
+                                      mesh=_cpu_mesh(2))
+        np.testing.assert_array_equal(labels, np.arange(u))
+        np.testing.assert_array_equal(counts, [0, 0])

@@ -187,17 +187,35 @@ def test_cuda_request_without_cuda_raises(tmp_path, monkeypatch, capsys):
     assert not (tmp_path / "o").exists()  # failed before any output
 
 
-@pytest.mark.parametrize("flags", [
-    ["--coordinator", "127.0.0.1:1234"], ["--num-processes", "2"],
-    ["--process-id", "0"]], ids=["coordinator", "num_processes",
-                                 "process_id"])
-def test_not_yet_ported_flags_exit_2(flags, tmp_path, capsys):
+@pytest.mark.parametrize("flags,message", [
+    (["--coordinator", "127.0.0.1:1234"], "--process-id"),
+    (["--num-processes", "2"], "requires --coordinator")],
+    ids=["coordinator", "num_processes"])
+def test_incomplete_multiprocess_flags_are_usage_errors(flags, message,
+                                                        tmp_path, capsys):
+    """An incomplete multi-process configuration is a usage error: status
+    2, no traceback, nothing written."""
     from humid_tpu_torch.cli import main
 
     with pytest.raises(SystemExit) as exc:
         main([*flags, "-d", str(tmp_path / "o"), str(tmp_path / "x.fq")])
     assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert message in err and "Traceback" not in err
+    assert not (tmp_path / "o").exists()
+
+
+def test_process_id_alone_runs_one_process(tmp_path, capsys):
+    """``--process-id`` alone names no multi-process run, so the run is
+    single-process (the JAX CLI's rule): its missing input is an input
+    error, status 1, with no traceback and nothing written."""
+    from humid_tpu_torch.cli import main
+
+    assert main(["--process-id", "0", "-d", str(tmp_path / "o"),
+                 str(tmp_path / "x.fq")]) == 1
+    err = capsys.readouterr().err
+    assert "humid-tpu-torch: error:" in err and "Traceback" not in err
+    assert not (tmp_path / "o").exists()
 
 
 @pytest.fixture(scope="module")
