@@ -145,8 +145,27 @@ Phases, each printing its own line; any failure exits non-zero:
 21. startup: one subprocess timing the torch import, the package import,
     CUDA init, ``_build.py``'s staleness check and the calibration cache
     read.
-22. One JSON line describing both kernels: ``launches`` on this slice's
-    paths (K1 summed over mp_big_runs' processes, K2 in mesh_labels'
+22. directional_1M: e2e_1M's unique table and its bucketed K1 pairs
+    (K1 launches counted) through ``cluster_directional_device`` on the
+    card, equal field for field to the host walk and to the same function
+    on the CPU; the round program's ms by CUDA events, its rounds,
+    kernels and busy time (``torch.profiler``) and ``program_bound``; a
+    40-node doubling chain on the card against the host walk; the phase-4
+    file with HUMID_TPU_TORCH_CLUSTER=device, byte-identical to
+    baseline/humid_ref, its "Calculating directional clusters" seconds
+    beside phase 4's.
+23. The phase-4 file with ``profile_dir=``: one Chrome trace that parses
+    and holds CUDA kernel events (counted) and the three phase ranges,
+    outputs equal to phase 4's.
+24. Host extensions built: humid_tpu_torch/, csrc/ and setup.py copied to
+    build/chip_smoke/ext_tree/ and ``setup.py build_ext --inplace`` run
+    there; the phase-4 file by two subprocesses from that copy (their own
+    calibration file): the default route and HUMID_TPU_TORCH_CLUSTER=device,
+    each byte-identical to baseline/humid_ref; phase seconds printed.
+    Without a compiler or Python headers the phase says so on its own line
+    and the run goes on.
+25. One JSON line describing both kernels: ``launches`` on this slice's
+    paths (K1 in phase 22's bucketed pairs, K2 in mesh_labels'
     ``dedup_step``), each earlier path's in ``launches_by_path``;
     ``ms``, the kernel alone (phase 3's ``kernel_ms`` at the
     1M-read table for the tile sweep, phase 8's one step for the ring);
@@ -162,6 +181,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -959,24 +979,31 @@ def kernels_launched(fn, name: str, kernel: str | None = None) -> dict:
     the card's busy time where kernels on several streams overlap (the
     same where they do not).  ``kernel`` names one kernel whose events
     are also counted (``named``) and whose intervals' union is timed
-    (``named_busy_ms``)."""
+    (``named_busy_ms``).  ``traces`` is how many traces were taken: more
+    than 1 where a trace came back without any kernel event."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
     path = os.path.join(WORK, f"trace_{name}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X"]
-    os.remove(path)
+    # A trace now and then comes back without any device event (seen once
+    # in a single-card label propagation that traces fine otherwise): such
+    # a trace is taken again, at most twice.
+    for attempt in range(1, 4):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+        os.remove(path)
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if kernels:
+            break
     count = lambda cat: sum(1 for e in events if e.get("cat") == cat)
-    kernels = [e for e in events if e.get("cat") == "kernel"]
     out = {"kernels": len(kernels), "copies": count("gpu_memcpy"),
            "memsets": count("gpu_memset"),
            "kernel_ms": sum(e["dur"] for e in kernels) / 1e3,
@@ -984,8 +1011,9 @@ def kernels_launched(fn, name: str, kernel: str | None = None) -> dict:
     if kernel is not None:
         named = [e for e in kernels if kernel in e["name"]]
         out.update(named=len(named), named_busy_ms=_union_ms(named))
+    out["traces"] = attempt
     if not out["kernels"]:
-        raise SmokeFailure(f"{name}: the trace holds no kernel")
+        raise SmokeFailure(f"{name}: {attempt} traces hold no kernel")
     return out
 
 
@@ -1025,6 +1053,20 @@ def edit_bounds(pairs: int, m: int, length: int, card: dict) -> dict:
     return {"ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _with_env(env: dict, fn):
+    """``fn()`` with the variables of ``env`` set, restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _timed(fn):
@@ -1548,22 +1590,13 @@ def routes_phase(e2e: dict, device: str = "cuda",
 
     def one(name, fq, refs, *, env=None, opts=None, maximum=False,
             want=None):
-        saved = {k: os.environ.get(k) for k in (env or {})}
-        os.environ.update(env or {})
         cuda_hamming.LAUNCHES = 0
         t0 = time.perf_counter()
-        try:
-            res = humid_tpu_torch.run(
-                [fq], word_length=24, distance=1, maximum=maximum,
-                dir_name=os.path.join(WORK, f"out_route_{name}"),
-                log_name=os.devnull, run_stats=True, write_annotated=True,
-                device=device, neighbor_opts=opts)
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+        res = _with_env(env or {}, lambda: humid_tpu_torch.run(
+            [fq], word_length=24, distance=1, maximum=maximum,
+            dir_name=os.path.join(WORK, f"out_route_{name}"),
+            log_name=os.devnull, run_stats=True, write_annotated=True,
+            device=device, neighbor_opts=opts))
         seconds = time.perf_counter() - t0
         launches = cuda_hamming.LAUNCHES
         engine = res.extra["engine"]
@@ -1901,6 +1934,280 @@ def startup_phase() -> dict:
     return rec
 
 
+def _run_e2e(e2e: dict, name: str, device, **kw):
+    """The phase-4 file through ``run()`` with phase 4's flags into
+    build/chip_smoke/out_<name>; returns (result, seconds, K1 launches)."""
+    import humid_tpu_torch
+    from humid_tpu_torch.ops import cuda_hamming
+
+    cuda_hamming.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = humid_tpu_torch.run(
+        [kw.pop("fastq", e2e["fastq"])], word_length=24, distance=1,
+        dir_name=os.path.join(WORK, f"out_{name}"), log_name=os.devnull,
+        run_stats=True, write_annotated=True, device=device, **kw)
+    return res, time.perf_counter() - t0, cuda_hamming.LAUNCHES
+
+
+DIRECTIONAL = "Calculating directional clusters"
+
+
+def directional_device_phase(e2e: dict, device, card) -> dict:
+    """Phase 22 (directional_1M): e2e_1M's unique table and its bucketed
+    K1 pairs (K1 launches counted) clustered by
+    ``cluster_directional_device`` on the card, against the host walk and
+    the same function on the CPU, field for field; the round program's ms
+    by CUDA events, its kernels and busy time from ``torch.profiler`` and
+    ``program_bound``; a 40-node doubling chain on the card against the
+    host walk; then e2e_1M with HUMID_TPU_TORCH_CLUSTER=device against
+    phase 4's outputs and baseline/humid_ref."""
+    import torch
+
+    from humid_tpu_torch._device import to_device
+    from humid_tpu_torch.cluster import cluster_exact
+    from humid_tpu_torch.cluster import directional_device as D
+    from humid_tpu_torch.cluster.labelprop import components_tensor
+    from humid_tpu_torch.ops import (cuda_hamming, find_neighbor_pairs,
+                                     pairs_to_csr, unique_words)
+    from humid_tpu_torch.parallel.pipeline import pack_host_range
+
+    packed, filtered = pack_host_range([e2e["fastq"]], 0, 1 << 40)
+    uniq, counts, _, _ = unique_words(packed[~filtered], want_inverse=False,
+                                      device=device)
+    u = len(uniq)
+    cuda_hamming.LAUNCHES = 0
+    pa, pb = find_neighbor_pairs(uniq, 1, word_length=24,
+                                 strategy="bucketed", device=device)
+    out = {"nodes": u, "edges": len(pa), "k1": cuda_hamming.LAUNCHES}
+    if out["k1"] < 1:
+        raise SmokeFailure("phase 22: the bucketed pairs launched no K1")
+    indptr, indices = pairs_to_csr(pa, pb, u)
+    t0 = time.perf_counter()
+    host = cluster_exact(counts, indptr, indices)
+    out["host_walk_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = D.cluster_directional_device(counts, pa, pb, device="cpu")
+    out["cpu_s"] = time.perf_counter() - t0
+    info = {}
+    got, out["card_ms"] = _timed(lambda: D.cluster_directional_device(
+        counts, pa, pb, device=device, info=info))
+    out["rounds"] = info["rounds"]
+    for field in ("labels", "max_leaf", "max_count", "size"):
+        for name, want in (("host walk", host), ("CPU", on_cpu)):
+            if not np.array_equal(getattr(got, field), getattr(want, field)):
+                raise SmokeFailure(f"phase 22: {field} on the card differs "
+                                   f"from the {name}")
+    out["clusters"] = got.num_clusters
+
+    # The round program alone, on inputs already on the card.
+    comp = components_tensor(pa, pb, u, device)
+    args = [to_device(np.ascontiguousarray(x, np.int64), device)
+            for x in (counts, pa, pb)]
+    rounds_fn = lambda: D._directional_rounds(args[0], comp, args[1],
+                                              args[2])
+    e = len(pa)
+    # Inputs read once (counts, comp, both edge arrays), two [u] outputs;
+    # per round about 6 integer operations per directed edge in each of
+    # the 31 climb sweeps and 31 descent sweeps.
+    bound = program_bound(8 * (4 * u + 2 * e),
+                          out["rounds"] * 62 * 6 * 2 * e, card)
+    out["program"] = {"launches": kernels_launched(rounds_fn,
+                                                   "directional_rounds"),
+                      "ms": time_cuda(rounds_fn, 3), **bound}
+
+    chain = 1 << (np.arange(40, dtype=np.int64) % 20)
+    ca = np.arange(39, dtype=np.int64)
+    ip, ix = pairs_to_csr(ca, ca + 1, 40)
+    want = cluster_exact(chain, ip, ix)
+    chain_got = D.cluster_directional_device(chain, ca, ca + 1,
+                                             device=device)
+    if not (np.array_equal(chain_got.labels, want.labels)
+            and np.array_equal(chain_got.max_leaf, want.max_leaf)):
+        raise SmokeFailure("phase 22: the doubling chain differs")
+
+    res, seconds, launches = _with_env(
+        {"HUMID_TPU_TORCH_CLUSTER": "device"},
+        lambda: _run_e2e(e2e, "directional_device", device))
+    if res.extra["engine"].get("directional") != "device":
+        raise SmokeFailure(f"phase 22: e2e engine {res.extra['engine']}")
+    for ref in e2e["outs"]:
+        _same_files(ref, os.path.join(WORK, "out_directional_device"))
+    out["e2e"] = {"seconds": seconds, "k1": launches,
+                  "engine": res.extra["engine"],
+                  "directional_s": res.extra["timings"][DIRECTIONAL],
+                  "default_directional_s": e2e["timings"][DIRECTIONAL]}
+    say(f"phase 22 directional_1M: {json.dumps(out)}; the card == the host "
+        f"walk == the CPU; the doubling chain equal; e2e outputs "
+        f"byte-identical to phase 4's"
+        + (" and to baseline/humid_ref" if e2e["humid_ref"] else ""))
+    return out
+
+
+def _trace_summary(profile_dir: str) -> dict:
+    """The one Chrome trace in ``profile_dir``: its CUDA kernel events and
+    whether the phases' ranges are in it."""
+    names = os.listdir(profile_dir)
+    if len(names) != 1:
+        raise SmokeFailure(f"profile dir holds {names}, not one trace")
+    with open(os.path.join(profile_dir, names[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    phases = ("Reading data", "Calculating neighbours using Hamming "
+              "distance", DIRECTIONAL)
+    present = {e.get("name") for e in events}
+    return {"events": len(events), "kernel_events": len(kernels),
+            "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3,
+            "phases": [p for p in phases if p in present],
+            "missing_phases": [p for p in phases if p not in present]}
+
+
+def profile_phase(e2e: dict, device) -> dict:
+    """Phase 23: e2e_1M with ``profile_dir=``: one trace that parses and
+    holds CUDA kernel events and the three phase ranges, outputs equal to
+    phase 4's."""
+    out = {}
+    for attempt in (1, 2):  # once more if the trace lost every kernel
+        prof = os.path.join(WORK, f"profile_{attempt}")
+        res, seconds, _ = _run_e2e(e2e, "profiled", device,
+                                   profile_dir=prof)
+        _same_files(os.path.join(WORK, "out_run"),
+                    os.path.join(WORK, "out_profiled"))
+        trace = _trace_summary(prof)
+        if trace["kernel_events"]:
+            break
+        shutil.rmtree(os.path.join(WORK, "out_profiled"))
+    if trace["kernel_events"] < 1 or trace["missing_phases"]:
+        raise SmokeFailure(f"phase 23 profiler: {trace}")
+    out["profiled"] = {"seconds": seconds, "trace": trace,
+                       "attempts": attempt, "timings": res.extra["timings"]}
+    say(f"phase 23: {json.dumps(out)}; outputs byte-identical to phase 4's")
+    return out
+
+
+#: One run of the phase-4 file by the copy with the host extensions built
+#: (argv: fastq, output dir); prints "EXT {json}" after it.
+EXT_RUNNER = """
+import importlib, json, sys, time
+import humid_tpu_torch
+from humid_tpu_torch import _backend
+errors = {}
+for name in ("_hostops", "cluster._ccluster", "io._cfastqio"):
+    try:
+        importlib.import_module("humid_tpu_torch." + name)
+    except ImportError as exc:
+        errors[name] = str(exc)
+t0 = time.perf_counter()
+res = humid_tpu_torch.run([sys.argv[1]], word_length=24, distance=1,
+                          dir_name=sys.argv[2], log_name="/dev/null",
+                          run_stats=True, write_annotated=True)
+print("EXT " + json.dumps({
+    "seconds": time.perf_counter() - t0, "engine": res.extra["engine"],
+    "timings": res.extra["timings"],
+    "extensions": _backend._host_extensions(), "import_errors": errors}),
+    flush=True)
+"""
+
+
+def _ext_toolchain_missing() -> str | None:
+    """Why setup.py cannot build here (no compiler, no Python headers), or
+    None."""
+    import sysconfig
+
+    cc = (sysconfig.get_config_var("CC") or "cc").split()[0]
+    if shutil.which(cc) is None:
+        return f"no C compiler ({cc})"
+    header = os.path.join(sysconfig.get_paths()["include"], "Python.h")
+    if not os.path.exists(header):
+        return f"no Python headers ({header})"
+    return None
+
+
+def _build_ext(tree: str) -> subprocess.CompletedProcess:
+    # Serial: the two packages' extensions compile the same sources to the
+    # same object files, which a parallel build (-j) writes concurrently.
+    return subprocess.run(
+        [sys.executable, "setup.py", "build_ext", "--inplace", "--force"],
+        cwd=tree, capture_output=True, text=True)
+
+
+def host_extensions_phase(e2e: dict, device: str = "cuda") -> dict | None:
+    """Phase 24: humid_tpu_torch/, csrc/ and setup.py copied to
+    build/chip_smoke/ext_tree/, ``setup.py build_ext --inplace`` there,
+    then the phase-4 file by two subprocesses from that copy (its own
+    calibration file): the default route and HUMID_TPU_TORCH_CLUSTER=device;
+    each byte-identical to baseline/humid_ref (phase 4's outputs without it).
+    A compiler that cannot link OpenMP builds the copy without it (said
+    on its own line).  Without a compiler or Python headers the phase
+    says so and returns None; any other failure fails the run."""
+    why = _ext_toolchain_missing()
+    if why:
+        say(f"phase 24 host extensions: not built, {why}")
+        return None
+    tree = os.path.join(WORK, "ext_tree")
+    for part in ("humid_tpu_torch", "csrc"):
+        shutil.copytree(os.path.join(REPO, part), os.path.join(tree, part),
+                        ignore=shutil.ignore_patterns("*.so", "__pycache__"))
+    shutil.copy2(os.path.join(REPO, "setup.py"), tree)
+    # The kernels built in phase 2 (newer than their copied sources).
+    built = os.path.join(REPO, "build", "humid_tpu_torch")
+    if os.path.isdir(built):
+        shutil.copytree(built, os.path.join(tree, "build", "humid_tpu_torch"))
+    # setup.py builds the JAX package's extensions too: give them their
+    # directories (the copy holds no JAX package).
+    for d in ("cluster", "io"):
+        os.makedirs(os.path.join(tree, "humid_tpu", d))
+    t0 = time.perf_counter()
+    proc = _build_ext(tree)
+    openmp = True
+    if proc.returncode and "libgomp" in proc.stdout + proc.stderr:
+        # A compiler without its OpenMP runtime: the sources build without
+        # OpenMP (every OpenMP use is guarded), their loops then serial.
+        say("phase 24 host extensions: the compiler cannot link -fopenmp "
+            "(no libgomp); building the copy without OpenMP")
+        openmp = False
+        with open(os.path.join(tree, "setup.py")) as f:
+            recipe = f.read()
+        with open(os.path.join(tree, "setup.py"), "w") as f:
+            f.write(re.sub(r',?\s*"-fopenmp"', "", recipe))
+        proc = _build_ext(tree)
+    build_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise SmokeFailure(f"phase 24: setup.py build_ext failed:\n"
+                           f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    env = dict(os.environ, PYTHONPATH=tree, HUMID_TPU_TORCH_DEVICE=device,
+               HUMID_TPU_TORCH_CALIB_PATH=os.path.join(tree, "calib.json"))
+    env.pop("HUMID_TPU_TORCH_CLUSTER", None)
+    out = {"build_s": build_s, "openmp": openmp}
+    for name, extra in (("default", {}),
+                        ("cluster_device", {"HUMID_TPU_TORCH_CLUSTER":
+                                            "device"})):
+        dest = os.path.join(WORK, f"out_ext_{name}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXT_RUNNER, e2e["fastq"], dest],
+            cwd=tree, env={**env, **extra}, capture_output=True, text=True)
+        if proc.returncode:
+            raise SmokeFailure(f"phase 24 {name} failed:\n{proc.stderr}")
+        rec = json.loads([ln for ln in proc.stdout.splitlines()
+                          if ln.startswith("EXT ")][-1][4:])
+        rec["process_s"] = time.perf_counter() - t0
+        if rec["extensions"] != "111":
+            raise SmokeFailure(f"phase 24 {name}: extensions "
+                               f"{rec['extensions']} loaded, not all three: "
+                               f"{rec['import_errors']}")
+        if (name == "cluster_device"
+                and rec["engine"].get("directional") != "device"):
+            raise SmokeFailure(f"phase 24 cluster_device: {rec['engine']}")
+        _same_files(e2e["outs"][-1], dest)
+        out[name] = rec
+        say(f"phase 24 {name}: {json.dumps(rec)}")
+    say(f"phase 24 host extensions: built in {build_s:.3f} s "
+        f"({'with' if openmp else 'without'} OpenMP); both routes "
+        f"byte-identical to "
+        + ("baseline/humid_ref" if e2e["humid_ref"] else "phase 4's outputs"))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1984,6 +2291,9 @@ def main() -> int:
     mp_big = mp_big_runs_phase()
     mp_edit_gz = mp_edit_gz_phase(e2e)
     startup_phase()
+    directional = directional_device_phase(e2e, device, card_info)
+    profile_phase(e2e, device)
+    host_extensions_phase(e2e)
 
     main_shape = sweeps["bucketed_1M_reads"]
     no_library = None  # no single PyTorch call computes either sweep
@@ -1991,12 +2301,12 @@ def main() -> int:
         "name": "hamming_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/hamming_sweep.cu",
         "replaces": "humid_tpu/ops/pallas_hamming.py:60",
-        # This slice's path: the multi-process run of the low-entropy
-        # file (phase 18; summed over its 4 processes), where the owned
-        # giant run goes through _big_run_pairs.  The earlier paths' counts
-        # beside it.
-        "launches": mp_big["k1"],
+        # This slice's path: the bucketed pairs that phase 22 clusters on
+        # the card; the earlier paths' counts beside it.
+        "launches": directional["k1"],
         "launches_by_path": {
+            "directional_1M_pairs": directional["k1"],
+            "directional_device_e2e_1M": directional["e2e"]["k1"],
             "mp_big_runs": mp_big["k1"], "mp_1M": mp_1m["k1"],
             "mp_edit": mp_edit_gz["mp_edit"]["k1"],
             "mp_gz": mp_edit_gz["mp_gz"]["k1"],

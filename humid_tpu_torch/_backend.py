@@ -38,7 +38,7 @@ import time
 import torch
 
 #: Bumped when an engine's cost changes materially (drops cached rows).
-_CALIB_VERSION = 1
+_CALIB_VERSION = 2
 
 #: This process's constants, read from the cache or measured once.
 _CALIB: dict | None = None
@@ -76,9 +76,22 @@ def _calib_path() -> str:
                      "engine_calib.json"))
 
 
+def _host_extensions() -> str:
+    """Which host C extensions this install has built, as "hostops,
+    ccluster, cfastqio" flags: they set the host engines' constants."""
+    from .cluster import exact
+    from .io import reader
+    from .ops import unique
+
+    built = (unique._unique_packed is not None, exact._native is not None,
+             reader._frame_native is not None)
+    return "".join("1" if b else "0" for b in built)
+
+
 def _calib_key(device: torch.device) -> str:
     return (f"v{_CALIB_VERSION}|{torch.cuda.get_device_name(device)}"
-            f"|ncpu={os.cpu_count()}|ngpu={torch.cuda.device_count()}")
+            f"|ncpu={os.cpu_count()}|ngpu={torch.cuda.device_count()}"
+            f"|ext={_host_extensions()}")
 
 
 def _gen_probe_words(n: int, word_length: int = 24, seed: int = 0):

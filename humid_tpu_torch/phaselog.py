@@ -7,8 +7,9 @@ Beyond the reference, every phase is also:
 * recorded with sub-second resolution in :attr:`PhaseLog.timings`
   (surfaced as ``PipelineResult.extra["timings"]``), and
 * bracketed in a ``torch.profiler.record_function`` range, so a
-  ``torch.profiler`` trace taken around a run attributes device kernels
-  to pipeline phases.
+  ``torch.profiler`` trace taken around a run (``run(profile_dir=...)``
+  or $HUMID_TPU_TORCH_PROFILE writes one) attributes device kernels to
+  pipeline phases.
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ PyTorch/CUDA port of the reference's ``humid()`` entry point
           or, with edit=True, the shifted-segment search and the banded
           Levenshtein programs (host joins, torch)     <- asymmetricLevenshtein
   cluster exact traversal       (host/C++, iterative)  <- cluster.cc
-          (-x: device components where routed)
+          (-x: device components where routed; directional
+          on the device with HUMID_TPU_TORCH_CLUSTER=device)
   pass 2  write outputs         (host, streaming)      <- writeFiltered/
                                                           writeAnnotated
 
@@ -205,6 +206,11 @@ def _span_stitch(part, acc: dict) -> None:
 #: Uniques above which -x asks the router for device components.
 DEVICE_COMPONENTS_MIN = 1 << 14
 
+#: "device" takes the device directional route (:func:`cluster_dispatch`).
+CLUSTER_ENV_VAR = "HUMID_TPU_TORCH_CLUSTER"
+#: A directory: :func:`run` writes a torch.profiler trace of the run there.
+PROFILE_ENV_VAR = "HUMID_TPU_TORCH_PROFILE"
+
 
 def cluster_dispatch(counts, indptr, indices, *, maximum: bool, pairs=None,
                      device=None, info: dict | None = None):
@@ -212,9 +218,25 @@ def cluster_dispatch(counts, indptr, indices, *, maximum: bool, pairs=None,
     than DEVICE_COMPONENTS_MIN uniques, where the router says so for
     ``device``, finds connected components on the device (label
     propagation) and finishes ids, sizes, maxCount and maxLeaf on the
-    host (:func:`cluster_max_from_components`, equal to the host walk);
-    everything else takes the host walk.  ``info`` receives "components"
-    ("device" or "host") for -x."""
+    host (:func:`cluster_max_from_components`, equal to the host walk).
+    Directional clustering with $HUMID_TPU_TORCH_CLUSTER=device, pairs
+    given and every count below 2^30 runs the device formulation
+    (:func:`.cluster.directional_device.cluster_directional_device`, equal
+    to the host walk; off by default).  Everything else takes the host
+    walk.  ``info`` receives "components" ("device" or "host") for -x and,
+    where the device directional route was asked for, "directional"
+    ("device", or "host" where the table did not qualify)."""
+    if not maximum and os.environ.get(CLUSTER_ENV_VAR) == "device":
+        on_device = pairs is not None and (
+            len(counts) == 0 or int(np.max(counts)) < (1 << 30))
+        if info is not None:
+            info["directional"] = "device" if on_device else "host"
+        if on_device:
+            from .cluster.directional_device import (
+                cluster_directional_device)
+
+            return cluster_directional_device(counts, pairs[0], pairs[1],
+                                              device=device)
     if maximum:
         from ._backend import use_device_engine
 
@@ -315,6 +337,7 @@ def run(
     neighbor_opts: dict | None = None,
     cache_records: bool | None = None,
     device=None,
+    profile_dir: str | None = None,
 ) -> PipelineResult:
     """Deduplicate ``files``; mirrors humid(wordLength, distance, ...)
     (humid.cc:369-409 and CLI defaults humid.cc:413-429); ``edit``
@@ -337,10 +360,35 @@ def run(
     :func:`humid_tpu_torch._backend.use_fused_pipeline`, for Hamming runs
     with ``distance >= 1`` and no ``neighbor_opts``,
     $HUMID_TPU_TORCH_STRATEGY or $HUMID_TPU_TORCH_UNIQUE.
+
+    ``profile_dir`` (or $HUMID_TPU_TORCH_PROFILE) wraps the whole run in
+    ``torch.profiler`` (CPU activity, and CUDA on a CUDA device) and
+    writes one Chrome trace, ``trace_<pid>.json``, into that directory;
+    the phases appear in it as ``record_function`` ranges.
     """
     if not files:
         raise InputError("at least one FastQ file required")
     dev = resolve_device(device)
+    if profile_dir is None:
+        profile_dir = os.environ.get(PROFILE_ENV_VAR)
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with profile(activities=activities) as prof:
+            res = run(files, word_length=word_length, distance=distance,
+                      log_name=log_name, dir_name=dir_name,
+                      run_stats=run_stats, write_dedup=write_dedup,
+                      write_annotated=write_annotated, maximum=maximum,
+                      edit=edit, batch_records=batch_records,
+                      neighbor_opts=neighbor_opts,
+                      cache_records=cache_records, device=dev,
+                      profile_dir="")
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(profile_dir, f"trace_{os.getpid()}.json"))
+        return res
     tune_malloc()  # scoped here, not at package import
     log = PhaseLog(log_name)
     res = PipelineResult()

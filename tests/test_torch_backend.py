@@ -24,6 +24,8 @@ from humid_tpu_torch.ops import unique_words
 
 CUDA = torch.device("cuda")
 CPU = torch.device("cpu")
+#: The real cache key (the fixture below replaces it).
+CALIB_KEY = B._calib_key
 
 
 @pytest.fixture(autouse=True)
@@ -278,3 +280,28 @@ def test_use_fused_pipeline_gating(monkeypatch):
     assert B.use_fused_pipeline(CPU) is False
     monkeypatch.setattr(B, "_CALIB", dict(base, pipeline_fused_ns=65.0))
     assert B.use_fused_pipeline(CUDA) is False
+
+
+@pytest.mark.parametrize("built", ["hostops", "ccluster", "cfastqio", "all"])
+def test_calibration_key_records_the_host_extensions(built, monkeypatch):
+    """A cache row measured without a host extension is not read by an
+    install that has it: the key differs."""
+    from humid_tpu_torch.cluster import exact
+    from humid_tpu_torch.io import reader
+    from humid_tpu_torch.ops import unique
+
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda device=None: "NVIDIA H100 80GB HBM3")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    flags = {"hostops": (unique, "_unique_packed"),
+             "ccluster": (exact, "_native"),
+             "cfastqio": (reader, "_frame_native")}
+    for mod, attr in flags.values():
+        monkeypatch.setattr(mod, attr, None)
+    bare = CALIB_KEY(CUDA)
+    for name in (flags if built == "all" else [built]):
+        monkeypatch.setattr(*flags[name], object())  # faked as built
+    key = CALIB_KEY(CUDA)
+    assert bare.startswith(f"v{B._CALIB_VERSION}|") and B._CALIB_VERSION >= 2
+    assert bare.endswith("|ext=000") and key != bare
+    assert key.endswith("|ext=111") == (built == "all")

@@ -4,8 +4,10 @@ versions on the card, the banded-Levenshtein programs and the neighbour
 engines of both metrics (the multi-stream rings and the pigeonhole runs
 engines included) on the card against the CPU, device unique counting and
 the fused device-resident route against the CPU (with the host waits it
-may make and the reuse of its pinned staging buffers), and the CLI on the
-card against baseline/humid_ref.
+may make and the reuse of its pinned staging buffers), the device
+directional clustering against the CPU (one host wait a round) and
+through run() against the default route, and the CLI on the card
+against baseline/humid_ref.
 
 They skip where torch.cuda.is_available() is False.  This file imports no
 jax, so it also runs where JAX is not installed:
@@ -847,3 +849,86 @@ def test_cli_two_processes_on_cuda_match_single_process(cuda_device,
     for name in names:
         assert _read(tmp_path / "one" / name) == \
             _read(tmp_path / "two" / name), name
+
+
+def _pair_graph(rng, u, e_factor, count_hi=50):
+    a = rng.integers(0, u, int(u * e_factor))
+    b = rng.integers(0, u, int(u * e_factor))
+    keep = a != b
+    key = np.unique(np.minimum(a, b)[keep] * u + np.maximum(a, b)[keep])
+    return (rng.integers(1, count_hi, u).astype(np.int64), key // u,
+            key % u)
+
+
+@pytest.mark.parametrize("seed,u,e_factor,count_hi", [
+    (1, 300, 2.0, 50), (2, 2000, 1.0, 200), (3, 400, 3.0, 5),
+    (4, 50000, 0.3, 1000)])
+def test_directional_device_on_cuda_matches_cpu(seed, u, e_factor, count_hi,
+                                                cuda_device):
+    from humid_tpu_torch.cluster.directional_device import (
+        cluster_directional_device)
+
+    counts, pa, pb = _pair_graph(np.random.default_rng(seed), u, e_factor,
+                                 count_hi)
+    got = cluster_directional_device(counts, pa, pb, device=cuda_device)
+    want = cluster_directional_device(counts, pa, pb, device="cpu")
+    for field in ("labels", "max_leaf", "max_count", "size"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)
+
+
+def test_directional_rounds_wait_once_a_round(cuda_device, monkeypatch):
+    """Under set_sync_debug_mode("error") the round loop's only host wait
+    is its "anything unassigned?" read: rounds + 1 of them."""
+    from humid_tpu_torch.cluster import directional_device as D
+    from humid_tpu_torch.cluster.labelprop import components_tensor
+
+    counts, pa, pb = _pair_graph(np.random.default_rng(5), 3000, 1.0)
+    comp = components_tensor(pa, pb, len(counts), cuda_device)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (counts, pa, pb)]
+    want = D._directional_rounds(*(t.cpu() for t in (args[0], comp,
+                                                     args[1], args[2])))
+    torch.cuda.synchronize()
+    waits = []
+    real = D._any_unassigned
+
+    def counted(cluster_seed):
+        waits.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(cluster_seed)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(D, "_any_unassigned", counted)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seed, max_leaf, rounds = D._directional_rounds(args[0], comp,
+                                                       args[1], args[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert rounds == want[2] and len(waits) == rounds + 1
+    assert torch.equal(seed.cpu(), want[0])
+    assert torch.equal(max_leaf.cpu(), want[1])
+
+
+def test_device_directional_run_on_cuda_matches_default(cuda_device,
+                                                       tmp_path,
+                                                       monkeypatch):
+    import humid_tpu_torch
+
+    monkeypatch.setenv("HUMID_TPU_TORCH_CALIBRATION", "off")
+    monkeypatch.delenv("HUMID_TPU_TORCH_CLUSTER", raising=False)
+    gen_dataset(np.random.default_rng(64), str(tmp_path), n_reads=3000,
+                n_files=2, umi_style="underscore", ragged=True)
+    files = [str(tmp_path / f"file{i}.fastq") for i in range(2)]
+    kw = dict(log_name=os.devnull, run_stats=True, write_annotated=True,
+              device=cuda_device)
+    humid_tpu_torch.run(files, dir_name=str(tmp_path / "default"), **kw)
+    monkeypatch.setenv("HUMID_TPU_TORCH_CLUSTER", "device")
+    res = humid_tpu_torch.run(files, dir_name=str(tmp_path / "device"),
+                              **kw)
+    assert res.extra["engine"]["directional"] == "device"
+    for name in sorted(os.listdir(tmp_path / "default")):
+        assert ((tmp_path / "default" / name).read_bytes()
+                == (tmp_path / "device" / name).read_bytes()), name
