@@ -31,10 +31,11 @@ Phases, each printing its own line; any failure exits non-zero:
    100 bp, dup factor 8, 30% one-substitution reads; bench.py's
    gen_dataset), run with ``-n 24 -m 1 -s -a`` on the card in process
    through ``humid_tpu_torch.run`` by the default route, the one the
-   router's constants of phase 13 choose (kernel launch counts reset just
-   before, read just after; the check follows the engine that ran: an
-   engine of the tile sweep must have launched it, a fused run must not
-   have fallen back) and once more through ``python -m humid_tpu_torch``
+   router's parameters of phase 13 choose (kernel launch counts reset
+   just before, read just after; the engine that ran must be the
+   router's pick at the run's size, and on this path it must have
+   launched the tile sweep: the dense K1 sweep is the pick at this
+   table's size) and once more through ``python -m humid_tpu_torch``
    in a subprocess; both must write identical files, dedup lines == 4 x
    clusters and annotated lines == 4 x total.  If g++ and zlib are
    present, baseline/humid_ref is built and its outputs must be
@@ -46,7 +47,8 @@ Phases, each printing its own line; any failure exits non-zero:
    launches give identical sorted arrays.
 6. The tile sweep with a run-id mask vs its plain version, on one shard's
    input of the bucketed mesh search built from the 1M-read table; the
-   same three times and the bound.
+   kernel alone, the wrapper with and without ids, the plain version and
+   the bound.
 7. The whole ring on a 65,536-unique table (w = 2, m = 1) for 1, 2, 3, 4
    and 8 shards on the one card, twice each: every result must equal the
    plain ring at 3 shards (the schedule driven through the plain step)
@@ -95,10 +97,16 @@ Phases, each printing its own line; any failure exits non-zero:
 13. The router's calibration (run before phase 4): ``engine_constants``
     measured once into build/chip_smoke/engine_calib.json
     (HUMID_TPU_TORCH_CALIB_PATH, which every later run and CLI subprocess
-    reads); the constants and the choices they make are printed.
+    reads) at its two probes; each engine's time at both, the two
+    parameters fitted to them, the seconds the calibration took, and the
+    choices they make at the sweep tables' sizes are printed.
 14. The Hamming engines against each other at sweep_1M and sweep_10M's
-    tables: host ``runs``, ``runs_device``, ``bucketed`` and ``dense``
-    give identical pair arrays (wall times printed); ``fused_probe`` on
+    tables: host ``runs``, ``runs_device``, ``bucketed``, ``dense`` and,
+    with several cards, the bucketed mesh search give identical pair
+    arrays; wall times (best of 2) beside the router's pick and its
+    predictions at each table's size: the pick may be slower than the
+    fastest engine by no more than the calibration's spread + 10%;
+    ``fused_probe`` on
     1M and 10M packed reads of the benchmark recipe equals host
     ``unique_words`` + ``runs``; a feeder that starts short grows and
     holds every row of 10M.
@@ -164,15 +172,31 @@ Phases, each printing its own line; any failure exits non-zero:
     each byte-identical to baseline/humid_ref; phase seconds printed.
     Without a compiler or Python headers the phase says so on its own line
     and the run goes on.
-25. One JSON line describing both kernels: ``launches`` on this slice's
-    paths (K1 in phase 22's bucketed pairs, K2 in mesh_labels'
-    ``dedup_step``), each earlier path's in ``launches_by_path``;
+25. The bucketed mesh search on 4 shards over every card (one card: the
+    4 shards round-robin on it, and a line says that no overlap can be
+    shown there), every shard enqueued before any read, at sweep_1M and
+    sweep_10M against phase 14's ``runs`` pairs: wall ms, the host prep's
+    share, K1 launches per card, and with several cards the cards' K1
+    intervals on one clock and the pairs of cards whose kernels
+    overlapped (``--mesh`` fails, after its other checks, unless two
+    cards' kernels overlapped at sweep_10M).
+26. One JSON line describing both kernels: ``launches`` on this slice's
+    paths (K1 on e2e_1M by the router's pick, phase 4; K2 in
+    mesh_labels' ``dedup_step``), each earlier path's in
+    ``launches_by_path``;
     ``ms``, the kernel alone (phase 3's ``kernel_ms`` at the
     1M-read table for the tile sweep, phase 8's one step for the ring);
     ``wrapper_ms``, the same call through its wrapper; ``plain_ms``; the
     POPC form's bound for the same work.  The edit path launches neither
     kernel and adds none.  Then the card's nvidia-smi line and the result
     line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --mesh`` (for a machine with several cards)
+runs only the mesh route and what it is held against: phases 13 and 14,
+the ring, both edit mesh searches and ``dedup_step`` on one shard a card
+against the same four shards on card 0, e2e_1M by ``auto`` (phase 4)
+against baseline/humid_ref, and phase 25; it ends with every card's
+nvidia-smi line and the result line.
 
 Scratch files go to build/chip_smoke/ inside the checkout.
 """
@@ -503,10 +527,15 @@ def end_to_end_phase(n_reads: int, device: str = "cuda") -> dict:
     seconds = time.perf_counter() - t0
     launches = cuda_hamming.LAUNCHES
     engine = res.extra["engine"]
-    say(f"phase 4 run() by the default route: {seconds:.3f} s, engine "
-        f"{json.dumps(engine)}, tile sweep launches {launches}, timings "
+    pick = default_hamming_engine(device, fq, len(res.counts))
+    say(f"phase 4 run() by the default route: {seconds:.3f} s, "
+        f"{len(res.counts)} uniques, engine {json.dumps(engine)} (the "
+        f"router's pick: {pick}), tile sweep launches {launches}, timings "
         f"{json.dumps(res.extra['timings'])}")
     check_launches("phase 4 default route", engine, launches)
+    if engine.get("strategy") != pick:
+        raise SmokeFailure(f"phase 4: the default route ran {engine}, the "
+                           f"router picks {pick}")
 
     out_cli = os.path.join(WORK, "out_cli")
     t0 = time.perf_counter()
@@ -549,6 +578,7 @@ def end_to_end_phase(n_reads: int, device: str = "cuda") -> dict:
     have_ref = bool(gxx and os.path.exists("/usr/include/zlib.h"))
     return {"seconds": seconds, "cli_seconds": cli_seconds,
             "launches": launches, "engine": engine,
+            "uniques": len(res.counts),
             "timings": res.extra["timings"], "stats": st, "fastq": fq,
             "flags": flags,
             "humid_ref": os.path.join(WORK, "humid_ref") if have_ref else None,
@@ -649,6 +679,8 @@ def ids_phase(device, uniq, card) -> None:
     ms = time_cuda(lambda: K.hamming_tile_pairs(lanes, tp, **kw), 5)
     free_ms = time_cuda(
         lambda: K.hamming_tile_pairs(lanes, tp, **{**kw, "ids": None}), 5)
+    plain_ms = time_cuda(lambda: K.hamming_tile_pairs_plain(lanes, tp, **kw),
+                         1)
     evaluations = sweep_evaluations(
         len(prep["rows"][0]), prep["tile_pairs"][0], prep["tile"],
         prep["r_pad"], prep["urows"][0])
@@ -662,7 +694,7 @@ def ids_phase(device, uniq, card) -> None:
         f"{evaluations} evaluations; kernel alone {kernel_ms:.4f} ms, bound "
         f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; share "
         f"{share:.3f}); wrapper {ms:.3f} ms with ids, {free_ms:.3f} ms "
-        f"without")
+        f"without; plain version {plain_ms:.3f} ms")
 
 
 def plain_ring(uniq, max_dist, d, device):
@@ -1319,7 +1351,8 @@ def edit_indel_end_to_end_phase(e2e: dict, table, length: int = 33,
             device=device)
         engine = res.extra["engine"]
         if (engine["metric"], engine["strategy"]) != (
-                name, "runs" if edit else default_hamming_engine(device)):
+                name, "runs" if edit
+                else default_hamming_engine(device, fq, len(table))):
             raise SmokeFailure(f"phase 12 indels {name}: engine {engine}")
         clusters[name] = _stats(out)["clusters"]
         if e2e["humid_ref"]:
@@ -1340,35 +1373,49 @@ def edit_indel_end_to_end_phase(e2e: dict, table, length: int = 33,
            else " (baseline/humid_ref not run)"))
 
 
-def default_hamming_engine(device) -> str:
-    """The engine the default route takes for a Hamming table above the
-    size gate: the fused route when the router says so, else the router's
-    neighbour engine."""
+def default_hamming_engine(device, fastq: str, u: int) -> str:
+    """The engine the default route takes for a Hamming run of ``fastq``
+    whose table of ``u`` uniques is above the size gate: the fused route
+    when the router says so at the run's read estimate, else the router's
+    neighbour engine at ``u``."""
     import torch
 
     from humid_tpu_torch import _backend as B
+    from humid_tpu_torch.pipeline import reads_estimate
 
     dev = torch.device(device)
-    return ("fused" if B.use_fused_pipeline(dev)
-            else B.pick_neighbor_engine(dev))
+    return ("fused" if B.use_fused_pipeline(dev, reads_estimate([fastq]))
+            else B.pick_neighbor_engine(dev, u))
 
 
-def calibration_phase(device) -> dict:
+def calibration_phase(device, tables) -> dict:
     """Phase 13 (run before phase 4, whose default route reads its result):
     the router's calibration, once, into the scratch cache that main()
-    names in HUMID_TPU_TORCH_CALIB_PATH; the constants and the choices
-    they make."""
+    names in HUMID_TPU_TORCH_CALIB_PATH; both probes' times of every
+    engine, the two parameters fitted to them, and the choices they make
+    at the sweep tables' sizes (neighbours) and at 1M and 10M reads
+    (fused or not)."""
     from humid_tpu_torch import _backend as B
 
     t0 = time.perf_counter()
     constants = B.engine_constants(device, refresh=True)
     seconds = time.perf_counter() - t0
-    choices = {"neighbors": B.pick_neighbor_engine(device),
-               "unique_on_device": B.use_device_engine("unique", device),
-               "components_on_device": B.use_device_engine("cc", device),
-               "fused": B.use_fused_pipeline(device)}
-    say(f"phase 13: calibrated in {seconds:.3f} s; constants "
-        f"{json.dumps(constants)}; choices {json.dumps(choices)}")
+    sizes = {name: len(t) for name, t in tables.items()
+             if name.startswith("bucketed_")}
+    choices = {
+        "neighbors": {name: B.pick_neighbor_engine(device, u)
+                      for name, u in sizes.items()},
+        "unique_on_device": B.use_device_engine("unique", device),
+        "components_on_device": B.use_device_engine("cc", device),
+        "fused": {n: B.use_fused_pipeline(device, n)
+                  for n in (1_000_000, 10_000_000)}}
+    for k, ms in constants["probe_ms"].items():
+        say(f"phase 13 {k}: probes {constants['probe_n']} reads / "
+            f"{constants['probe_u']} uniques: {ms} ms; fitted [fixed ns, "
+            f"size ns] {constants[k]}"
+            + (" (size: uniques squared)" if k in B._QUADRATIC else ""))
+    say(f"phase 13: calibrated in {seconds:.3f} s (both probes); spread "
+        f"{constants['spread']}; choices {json.dumps(choices)}")
     return {"constants": constants, "choices": choices, "seconds": seconds}
 
 
@@ -1390,11 +1437,15 @@ def sample_reads(n_reads: int, seed: int, length: int = 24) -> np.ndarray:
 def engines_agree_phase(device, tables,
                         probe_reads=(1_000_000, 10_000_000)) -> dict:
     """Phase 14: on the sweep_1M and sweep_10M tables the host runs engine,
-    the device runs engine, the bucketed tile sweep and the dense tile
-    sweep give identical pair arrays; fused_probe on 1M and 10M packed
-    reads (benchmark recipe) equals host unique_words + the runs engine;
-    a feeder that starts at an eighth of 10M rows grows and holds every
-    row."""
+    the device runs engine, the bucketed tile sweep, the dense tile sweep
+    and, with several cards, the bucketed mesh search over all of them
+    give identical pair arrays; each engine's wall time (best of 2) beside
+    the router's pick and predictions at the table's size, and the pick
+    may be no slower than the fastest engine by more than the
+    calibration's spread + 10%.  fused_probe on 1M and 10M packed reads
+    (benchmark recipe) equals host unique_words + the runs engine; a
+    feeder that starts at an eighth of 10M rows grows and holds every
+    row.  Returns the records and the runs engine's pairs per table."""
     import torch
 
     from humid_tpu_torch.ops import fused as F
@@ -1402,24 +1453,46 @@ def engines_agree_phase(device, tables,
     from humid_tpu_torch.ops import unique_words
     from humid_tpu_torch.ops.hamming import lanes_tensor
 
-    out = {}
+    from humid_tpu_torch import _backend as B
+
+    strategies = ["runs", "runs_device", "bucketed", "dense"]
+    if torch.cuda.device_count() > 1:
+        strategies.append("sharded_bucketed")  # the mesh of every card
+    c = B.engine_constants(device)
+    margin = float(c["spread"]) + 0.1
+    out, runs_pairs = {}, {}
     for name in ("bucketed_1M_reads", "bucketed_10M_reads"):
         uniq = tables[name]
         got, times, infos = {}, {}, {}
-        for strategy in ("runs", "runs_device", "bucketed", "dense"):
+        for strategy in strategies:
             infos[strategy] = {}
-            got[strategy], times[strategy] = _timed(
-                lambda: N.find_neighbor_pairs(
-                    uniq, 1, word_length=24, strategy=strategy,
-                    device=device, info=infos[strategy]))
-        for strategy in ("runs_device", "bucketed", "dense"):
+            run = lambda: N.find_neighbor_pairs(
+                uniq, 1, word_length=24, strategy=strategy, device=device,
+                info=infos[strategy])
+            got[strategy], first = _timed(run)
+            times[strategy] = min(first, _timed(run)[1])
+        for strategy in strategies[1:]:
             _equal_pairs(f"phase 14 {name} {strategy} vs runs",
                          got[strategy], got["runs"])
+        runs_pairs[name] = got["runs"]
+        pick = B.pick_neighbor_engine(device, len(uniq))
+        fastest = min(times, key=times.get)
+        predicted = {s: t / 1e6 for s, t in B.neighbor_times_ns(
+            c, len(uniq)).items()}
         out[name] = {"uniques": len(uniq), "pairs": len(got["runs"][0]),
-                     "wall_ms": times, "runs": infos["runs"],
+                     "wall_ms": times, "pick": pick,
+                     "predicted_ms": predicted, "fastest": fastest,
+                     "runs": infos["runs"],
                      "runs_device": infos["runs_device"]}
-        say(f"phase 14 {name}: runs == runs_device == bucketed == dense "
-            f"(tolerance 0); {json.dumps(out[name])}")
+        say(f"phase 14 {name}: {' == '.join(strategies)} (tolerance 0); "
+            f"wall ms best of 2; the router's pick at {len(uniq)} uniques "
+            f"is {pick}; {json.dumps(out[name])}")
+        if times[pick] > (1.0 + margin) * times[fastest]:
+            raise SmokeFailure(
+                f"phase 14 {name}: the router picks {pick} "
+                f"({times[pick]:.3f} ms), slower than {fastest} "
+                f"({times[fastest]:.3f} ms) by more than the spread + 10% "
+                f"({margin:.3f})")
     for n_reads in probe_reads:
         packed = sample_reads(n_reads, seed=n_reads % 1009)
         uniq, counts, first, _ = unique_words(packed, want_inverse=False)
@@ -1447,6 +1520,133 @@ def engines_agree_phase(device, tables,
         say(f"phase 14 fused_probe on {n_reads} reads == host unique_words "
             f"+ runs; a feeder of {cap0} rows grown to {feeder.cap} holds "
             f"every row; {json.dumps(out[f'fused_probe_{n_reads}'])}")
+    return out, runs_pairs
+
+
+def k1_intervals(fn):
+    """``fn()`` with every K1 launch bracketed by CUDA events on its card's
+    stream, on one clock: before the call every card's stream waits for
+    one gate event, recorded on card 0 after a short sleep kernel there,
+    and then records its anchor, so the anchors fire together and each
+    card's events are read against its own anchor.  Returns fn's result
+    and, per card index, its launches and the [first start, last end] ms
+    of its K1 kernels after the gate."""
+    import torch
+
+    from humid_tpu_torch.ops import cuda_hamming as K
+
+    n_cards = torch.cuda.device_count()
+    for i in range(n_cards):
+        torch.cuda.synchronize(i)
+    gate = torch.cuda.Event()
+    with torch.cuda.device(0):
+        torch.cuda._sleep(1 << 21)  # ~1 ms: every wait below is enqueued
+        gate.record()
+    anchors = {}
+    for i in range(n_cards):
+        with torch.cuda.device(i):
+            torch.cuda.current_stream().wait_event(gate)
+            anchors[i] = torch.cuda.Event(enable_timing=True)
+            anchors[i].record()
+    real = K._launch
+    marks = []
+
+    def launch(lanes, *args, **kw):
+        with torch.cuda.device(lanes.device):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            real(lanes, *args, **kw)
+            end.record()
+        marks.append((lanes.device.index, start, end))
+
+    K._launch = launch
+    try:
+        out = fn()
+    finally:
+        K._launch = real
+    for i in range(n_cards):
+        torch.cuda.synchronize(i)
+    cards = {}
+    for card, a, b in marks:
+        rec = cards.setdefault(card, {"launches": 0, "start_ms": np.inf,
+                                      "end_ms": -np.inf})
+        rec["launches"] += 1
+        rec["start_ms"] = min(rec["start_ms"],
+                              anchors[card].elapsed_time(a))
+        rec["end_ms"] = max(rec["end_ms"], anchors[card].elapsed_time(b))
+    return out, cards
+
+
+def _overlapping(cards: dict) -> list:
+    """Pairs of cards whose K1 intervals intersect."""
+    ids = sorted(cards)
+    return [(c, d) for i, c in enumerate(ids) for d in ids[i + 1:]
+            if cards[c]["start_ms"] < cards[d]["end_ms"]
+            and cards[d]["start_ms"] < cards[c]["end_ms"]]
+
+
+def mesh_search_phase(device, tables, runs_pairs) -> dict:
+    """Phase 25: the bucketed mesh search on ``data_mesh(4)`` over every
+    card there is (one shard a card on four cards; the four shards
+    round-robin on one card), at the sweep_1M and sweep_10M tables,
+    against the runs engine's pairs of phase 14 (tolerance 0).  Wall ms
+    (mean of 3 after a warm-up) and the host prep's share of the same
+    calls, K1 launches per card and, where there are several cards, the
+    cards' K1 intervals on one clock (``k1_intervals``) and the pairs of
+    cards whose kernels overlapped (``--mesh`` requires one at
+    sweep_10M).  K1's launches at sweep_1M are counted for the kernels
+    line."""
+    import torch
+
+    from humid_tpu_torch import parallel as P
+    from humid_tpu_torch.ops import cuda_hamming as K
+    from humid_tpu_torch.parallel import neighbors as PN
+
+    mesh = P.data_mesh(4, device)
+    n_cards = torch.cuda.device_count()
+    out = {"shards": len(mesh), "cards": n_cards}
+    prep = PN.bucketed_shard_inputs
+    for name in ("bucketed_1M_reads", "bucketed_10M_reads"):
+        uniq = tables[name]
+        search = lambda: P.sharded_neighbor_pairs_bucketed(
+            uniq, 1, word_length=24, mesh=mesh)
+        K.LAUNCHES = 0
+        got = search()
+        launches = K.LAUNCHES
+        _equal_pairs(f"phase 25 {name} mesh vs runs", got, runs_pairs[name])
+        got, cards = k1_intervals(search)
+        _equal_pairs(f"phase 25 {name} mesh (timed) vs runs", got,
+                     runs_pairs[name])
+        prep_s = []
+
+        def timed_prep(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return prep(*args, **kw)
+            finally:
+                prep_s.append(time.perf_counter() - t0)
+
+        PN.bucketed_shard_inputs = timed_prep
+        try:
+            wall = _wall_ms(search)
+        finally:
+            PN.bucketed_shard_inputs = prep
+        prep_ms = sum(prep_s[1:]) / len(prep_s[1:]) * 1e3  # after warm-up
+        rec = {"uniques": len(uniq), "pairs": len(got[0]),
+               "launches": launches, "wall_ms": wall, "prep_ms": prep_ms,
+               "prep_share": prep_ms / wall,
+               "k1_by_card": {c: r["launches"] for c, r in cards.items()},
+               "k1_ms_by_card": {c: [r["start_ms"], r["end_ms"]]
+                                 for c, r in cards.items()}}
+        if len(cards) > 1:
+            rec["overlapping_cards"] = _overlapping(cards)
+        out[name] = rec
+        say(f"phase 25 {name}: mesh search on {len(mesh)} shards == runs "
+            f"(tolerance 0); {json.dumps(rec)}")
+    if n_cards == 1:
+        say("phase 25: one card: its four shards share the card's stream, "
+            "so no overlap of shards can be shown here")
     return out
 
 
@@ -1740,12 +1940,13 @@ def mp_1m_phase(e2e: dict, device) -> dict:
     from humid_tpu_torch import _backend
 
     env = {"HUMID_TPU_TORCH_CLUSTER_SHARDED": "1"}
-    pick = _backend.pick_neighbor_engine(device, shardable_only=True)
+    pick = _backend.pick_neighbor_engine(device, e2e["uniques"],
+                                         shardable_only=True)
     if pick == "runs":
         env["HUMID_TPU_TORCH_DEVICE_ENGINE"] = "1"
     rec = mp_run("mp_1M", [e2e["fastq"]], e2e["flags"], 4, env)
     engine = rec["engine"]
-    if engine.get("strategy") not in ("bucketed", "runs_device"):
+    if engine.get("strategy") not in ("bucketed", "runs_device", "dense"):
         raise SmokeFailure(f"mp_1M searched the neighbours with "
                            f"{engine}, not a device engine")
     if engine.get("cluster") != "sharded":
@@ -2208,6 +2409,81 @@ def host_extensions_phase(e2e: dict, device: str = "cuda") -> dict | None:
     return out
 
 
+def mesh_main(device, smi_lines) -> int:
+    """``chip_smoke.py --mesh``: the local-mesh route on every card of the
+    machine, against what it must equal, and nothing else: the router's
+    calibration (with several cards it measures the bucketed mesh search
+    too) and its picks (phase 13); the engines at the sweep tables, the
+    mesh among them (phase 14); the ring, both edit mesh searches and
+    ``dedup_step`` on one shard a card against the same four shards on
+    card 0; e2e_1M by ``auto`` against baseline/humid_ref (phase 4); the
+    bucketed mesh search on one shard a card with its K1 intervals (phase
+    25), which must show two cards' kernels overlapping at sweep_10M.
+    Ends with one line per card from nvidia-smi and the result line."""
+    import torch
+
+    from humid_tpu_torch import parallel as P
+    from humid_tpu_torch.parallel import labelprop as L
+    from humid_tpu_torch.tools.ring_profile import sample_table
+
+    tables = {name: sample_table(n, seed=n % 997) for name, n in (
+        ("bucketed_1M_reads", 1_000_000), ("bucketed_10M_reads", 10_000_000))}
+    calib = calibration_phase(device, tables)
+    _, runs_pairs = engines_agree_phase(device, tables, probe_reads=())
+    cards, card0 = P.data_mesh(4, device), P.data_mesh(4, torch.device(
+        "cuda", 0))
+    uniq = tables["bucketed_1M_reads"]
+    edit_table = with_indels(sample_table(72_000, 33, seed=33, n_subst=2),
+                             33, 8192, seed=1)
+    checks = {
+        "ring_1M": lambda m: P.sharded_neighbor_pairs_ring(
+            uniq, 1, word_length=24, mesh=m),
+        "edit_shifted_8192": lambda m: P.sharded_edit_pairs_shifted(
+            edit_table, 2, word_length=33, mesh=m),
+        "edit_ring_8192": lambda m: P.sharded_neighbor_pairs(
+            edit_table, 2, metric="edit", word_length=33, mesh=m),
+        "dedup_step_1M": lambda m: (L.dedup_step(uniq, 1, mesh=m)[0],)}
+    walls = {}
+    for name, fn in checks.items():
+        want = fn(card0)
+        got, ms = _timed(lambda: fn(cards))
+        _, ms0 = _timed(lambda: fn(card0))
+        if name.startswith("dedup"):
+            if not np.array_equal(_host(got[0]), _host(want[0])):
+                raise SmokeFailure(f"--mesh {name}: labels differ between "
+                                   f"the cards and card 0")
+        else:
+            _equal_pairs(f"--mesh {name}", got, want)
+        walls[name] = {"cards_ms": ms, "card0_ms": ms0}
+        say(f"--mesh {name}: one shard a card == four shards on card 0; "
+            f"{json.dumps(walls[name])}")
+    e2e = end_to_end_phase(1_000_000)
+    mesh = mesh_search_phase(device, tables, runs_pairs)
+    overlap = (torch.cuda.device_count() == 1
+               or mesh["bucketed_10M_reads"]["overlapping_cards"])
+    for line in smi_lines:
+        say(line)
+    say(json.dumps({"mesh": {"cards": torch.cuda.device_count(),
+                             "calibration_s": calib["seconds"],
+                             "choices": calib["choices"],
+                             "mesh_search": mesh, "checks": walls,
+                             "auto_e2e_1M": {
+                                 "engine": e2e["engine"],
+                                 "seconds": e2e["seconds"],
+                                 "k1": e2e["launches"]}}}))
+    if not overlap:
+        raise SmokeFailure("phase 25: at sweep_10M no two cards' K1 "
+                           "kernels overlapped")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _host(x):
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
 def main() -> int:
     import torch
 
@@ -2264,9 +2540,14 @@ def main() -> int:
                     f"ceil(w / 2) POPC a column: {loop}")
 
     device = torch.device("cuda")
+    if sys.argv[1:] == ["--mesh"]:
+        return mesh_main(device, smi.stdout.strip().splitlines())
     sweeps, tables = sweep_phase(device, card_info)
-    calibration_phase(device)
+    calibration_phase(device, tables)
     e2e = end_to_end_phase(1_000_000)
+    if e2e["launches"] < 1:
+        raise SmokeFailure(f"phase 4: the default route ({e2e['engine']}) "
+                           f"launched no tile sweep")
     # Phase 20 runs this early: the longer the process has run, the more
     # of K2's kernels its torch.profiler trace loses (PERF.md).
     mesh_labels = mesh_labels_phase(e2e, device, card_info)
@@ -2284,7 +2565,7 @@ def main() -> int:
                        card_info)
     edit_end_to_end_phase(e2e)
     edit_indel_end_to_end_phase(e2e, table_indels)
-    engines_agree_phase(device, tables)
+    _, runs_pairs = engines_agree_phase(device, tables)
     programs_phase(device, card_info)
     routes = routes_phase(e2e)
     mp_1m = mp_1m_phase(e2e, device)
@@ -2294,6 +2575,7 @@ def main() -> int:
     directional = directional_device_phase(e2e, device, card_info)
     profile_phase(e2e, device)
     host_extensions_phase(e2e)
+    mesh = mesh_search_phase(device, tables, runs_pairs)
 
     main_shape = sweeps["bucketed_1M_reads"]
     no_library = None  # no single PyTorch call computes either sweep
@@ -2301,10 +2583,12 @@ def main() -> int:
         "name": "hamming_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/hamming_sweep.cu",
         "replaces": "humid_tpu/ops/pallas_hamming.py:60",
-        # This slice's path: the bucketed pairs that phase 22 clusters on
-        # the card; the earlier paths' counts beside it.
-        "launches": directional["k1"],
+        # This slice's path: e2e_1M by the router's pick (phase 4); the
+        # earlier paths' counts beside it.
+        "launches": e2e["launches"],
         "launches_by_path": {
+            "auto_e2e_1M": e2e["launches"],
+            "mesh_bucketed_sweep_1M": mesh["bucketed_1M_reads"]["launches"],
             "directional_1M_pairs": directional["k1"],
             "directional_device_e2e_1M": directional["e2e"]["k1"],
             "mp_big_runs": mp_big["k1"], "mp_1M": mp_1m["k1"],

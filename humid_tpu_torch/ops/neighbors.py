@@ -141,15 +141,15 @@ def choose_engine(u: int, max_dist: int, word_length: int | None,
     is large, ``runs`` (the shifted-segment search) for edit distance and
     for Hamming distance the calibrated router's pick on ``device``
     (:func:`humid_tpu_torch._backend.pick_neighbor_engine`: host ``runs``
-    on the CPU, else the engine measured fastest on this card and host);
-    else ``dense``.  Every engine returns the same pair set, so the choice
+    on the CPU, else the engine predicted fastest at ``u`` on this card
+    and host, ``dense`` among them); else ``dense``.  Every engine returns the same pair set, so the choice
     changes no output byte."""
     if max_dist >= 1 and word_length is not None and u > runs_threshold:
         if metric == "edit":
             return "runs"
         from .._backend import pick_neighbor_engine
 
-        return pick_neighbor_engine(resolve_device(device))
+        return pick_neighbor_engine(resolve_device(device), u)
     return "dense"
 
 

@@ -85,8 +85,8 @@ def unique_engine(n: int, device=None) -> str:
         return "host"
     from .._backend import use_device_engine
 
-    return ("device" if use_device_engine("unique", resolve_device(device))
-            else "host")
+    return ("device" if use_device_engine("unique", resolve_device(device),
+                                          n) else "host")
 
 
 def unique_words(packed: np.ndarray, want_inverse: bool = True,

@@ -244,9 +244,10 @@ def _engine_codes():
             {i: n for i, n in enumerate(names)})
 
 
-def broadcast_engine_choice(*, device=None, all_gather=None,
+def broadcast_engine_choice(*, u: int, device=None, all_gather=None,
                             process_id: int | None = None) -> str:
-    """Process 0's neighbour engine, agreed by every process.
+    """Process 0's neighbour engine for the merged table of ``u`` unique
+    words, agreed by every process.
 
     Each engine partitions the sharded candidate work by its own rule
     (hashed runs, striped tile pairs), so every process must run the same
@@ -266,8 +267,8 @@ def broadcast_engine_choice(*, device=None, all_gather=None,
     codes_by_name, names_by_code = _engine_codes()
     mine = -1
     if process_id == 0:
-        mine = codes_by_name[pick_neighbor_engine(resolve_device(device),
-                                                  shardable_only=True)]
+        mine = codes_by_name[pick_neighbor_engine(
+            resolve_device(device), u, shardable_only=True)]
     (codes,) = all_gather([np.asarray([mine], np.int64)])
     return names_by_code[int(np.asarray(codes[0]).ravel()[0])]
 

@@ -156,6 +156,24 @@ def _tile_product(a0: int, a1: int, b0: int, b1: int, upper: bool):
             for j in range(max(b0, i) if upper else b0, b1 + 1)]
 
 
+def _run_tile_pairs(shard_of_run: np.ndarray, t0: np.ndarray,
+                    t1: np.ndarray, d: int, n_tiles: int) -> list:
+    """Per shard, the sorted distinct tile pairs (i, j), t0 <= i <= j <= t1,
+    of its runs (a run within one tile gives its diagonal tile): [nb, 2]
+    int32 each.  Two ragged expansions (tiles of a run, then columns of a
+    tile) and one ``np.unique`` over (shard, i, j) keys."""
+    run_of_i = np.repeat(np.arange(len(t0)), t1 - t0 + 1)
+    i = _expand_runs(t0, t1 - t0 + 1)
+    n_j = t1[run_of_i] - i + 1
+    key = ((np.repeat(shard_of_run[run_of_i], n_j) * n_tiles
+            + np.repeat(i, n_j)) * n_tiles + _expand_runs(i, n_j))
+    key = np.unique(key)
+    ij = np.stack([key // n_tiles % n_tiles, key % n_tiles],
+                  axis=1).astype(np.int32)
+    cut = np.searchsorted(key // (n_tiles * n_tiles), np.arange(d + 1))
+    return [ij[cut[si]:cut[si + 1]] for si in range(d)]
+
+
 def bucketed_shard_inputs(packed: np.ndarray, max_dist: int,
                           word_length: int, d: int, tile: int = 512,
                           run_cap: int = 2048):
@@ -170,7 +188,8 @@ def bucketed_shard_inputs(packed: np.ndarray, max_dist: int,
     [nb, 2] int32, ``urows`` (real rows) and ``gmaps`` (row -> unique
     index).  The reference pads the tile count and the tile-pair lists to
     powers of two so that XLA reuses compiled programs; the tile sweep
-    takes a ragged list per launch, so neither padding is kept."""
+    takes a ragged list per launch, so neither padding is kept.  Every
+    step is one numpy pass over all shards' runs together."""
     u, w = packed.shape
     n_seg = max_dist + 1
     keys = _segment_run_ids(packed, word_length, n_seg)
@@ -195,51 +214,108 @@ def bucketed_shard_inputs(packed: np.ndarray, max_dist: int,
     # Heaviest-first snake assignment by descending pair count.
     weights = r_len * (r_len - 1) // 2
     rank, shard = _snake_assign(weights, d)
-    shard_tot = np.bincount(shard, weights=r_len, minlength=d)
+    shard_tot = np.bincount(shard, weights=r_len, minlength=d).astype(
+        np.int64)
     max_rows = int(shard_tot.max())
     b = min(tile, _round_up(max_rows, 256))
     r_pad = _round_up(max_rows, b)
 
-    out = dict(tile=b, r_pad=r_pad, rows=[], ids=[], tile_pairs=[],
-               urows=[], gmaps=[])
-    for si in range(d):
-        mine = rank[shard[rank] == si]  # this shard's runs, heaviest first
-        l_si = r_len[mine]
-        tot = int(l_si.sum())
-        rows = np.zeros((r_pad, w), packed.dtype)
-        # Padding rows carry distinct negative ids so they never match.
-        ids = -np.arange(1, r_pad + 1, dtype=np.int32)
-        gmap = np.full(r_pad, -1, np.int64)
-        tp: set = set()
-        if tot:
-            # Row gather: expand each run's sorted-order range;
-            # destinations are contiguous because offsets are the cumsum
-            # of run lengths.
-            src_pos = _expand_runs(r_start[mine], l_si)
-            src_part = np.repeat(part_id[mine], l_si)
-            idx = np.empty(tot, np.int64)
-            for p in range(n_seg):
-                m = src_part == p
-                if m.any():
-                    idx[m] = orders[p][src_pos[m]]
-            gmap[:tot] = idx
-            rows[:tot] = packed[idx]
-            ids[:tot] = np.repeat(np.arange(len(mine), dtype=np.int32), l_si)
-            # Tile pairs: single-tile runs contribute their diagonal tile
-            # (the common case, vectorized); runs spanning tiles add
-            # their block squares in a loop over that rare subset.
-            offs = np.cumsum(l_si) - l_si
-            t0 = offs // b
-            t1 = (offs + l_si - 1) // b
-            tp = {(int(t), int(t)) for t in np.unique(t0[t0 == t1])}
-            spans = t0 != t1
-            for s0, s1 in zip(t0[spans].tolist(), t1[spans].tolist()):
-                tp.update(_tile_product(s0, s1, s0, s1, True))
-        out["rows"].append(rows)
-        out["ids"].append(ids)
-        out["tile_pairs"].append(np.array(sorted(tp), np.int32).reshape(-1, 2))
-        out["urows"].append(tot)
-        out["gmaps"].append(gmap)
+    # The runs shard by shard, heaviest first within a shard; a shard's
+    # rows are its runs back to back from row 0.
+    runs = rank[np.argsort(shard[rank], kind="stable")]
+    lens = r_len[runs]
+    shard_of_run = shard[runs].astype(np.int64)
+    first_row = np.cumsum(shard_tot) - shard_tot
+    offs = np.cumsum(lens) - lens - first_row[shard_of_run]
+    n_runs = np.bincount(shard_of_run, minlength=d)
+    run_id = np.arange(len(runs)) - (np.cumsum(n_runs) - n_runs)[
+        shard_of_run]
+    # One gather for every shard: (partition, sorted position) -> unique
+    # index, to row (shard, offset).
+    idx = np.concatenate(orders)[np.repeat(part_id[runs] * np.int64(u),
+                                           lens)
+                                 + _expand_runs(r_start[runs], lens)]
+    dest = _expand_runs(shard_of_run * r_pad + offs, lens)
+    rows = np.zeros((d * r_pad, w), packed.dtype)
+    rows[dest] = packed[idx]
+    gmaps = np.full(d * r_pad, -1, np.int64)
+    gmaps[dest] = idx
+    # Padding rows carry distinct negative ids so they never match.
+    ids = np.tile(-np.arange(1, r_pad + 1, dtype=np.int32), d)
+    ids[dest] = np.repeat(run_id, lens).astype(np.int32)
+    tile_pairs = _run_tile_pairs(shard_of_run, offs // b,
+                                 (offs + lens - 1) // b, d, r_pad // b)
+    cut = lambda a: [a[si * r_pad:(si + 1) * r_pad] for si in range(d)]
+    return dict(tile=b, r_pad=r_pad, rows=cut(rows), ids=cut(ids),
+                tile_pairs=tile_pairs,
+                urows=[int(t) for t in shard_tot], gmaps=cut(gmaps))
+
+
+def _sweep_shards_on_cards(prep: dict, mesh, max_dist: int) -> list:
+    """The tile sweep of every shard with rows, on the cards of ``mesh``
+    at once: first every shard's uploads (pinned, without a wait) and its
+    own key buffer and counter, then every shard's K1 launches back to
+    back, each on its card's current stream; only then the reads.  The
+    counters are read once per shard; a shard whose buffer overflowed is
+    swept again with the exact capacity (all such reruns enqueued before
+    their reads), or through
+    :func:`..ops.cuda_hamming.hamming_tile_pairs`, which splits the work,
+    where that capacity exceeds ``MAX_CAP``.  Then each shard's keys come
+    back in one copy.  Returns (shard, a, b) of numpy row indices into
+    that shard's rows."""
+    from .. import _device
+    from ..ops import cuda_hamming as K
+
+    shards = []
+    for si, dev in enumerate(mesh):
+        if not prep["urows"][si]:
+            continue
+        tp = np.ones((len(prep["tile_pairs"][si]), 3), np.int32)
+        tp[:, :2] = prep["tile_pairs"][si]
+        with torch.cuda.device(dev):
+            lanes = _device.to_device(np.ascontiguousarray(
+                prep["rows"][si], np.uint32).view(np.int32), dev)
+            shards.append(dict(
+                si=si, lanes=lanes, tp=_device.to_device(tp, dev),
+                kw=dict(tile=prep["tile"], part_stride=prep["r_pad"],
+                        part_valid=prep["urows"][si], max_dist=max_dist,
+                        ids=_device.to_device(prep["ids"][si], dev))))
+
+    def enqueue(group, cap):
+        for sh in group:
+            dev = sh["lanes"].device
+            with torch.cuda.device(dev):
+                sh["keys"] = torch.empty(cap(sh), dtype=torch.int64,
+                                         device=dev)
+                sh["counter"] = torch.zeros(2, dtype=torch.int64,
+                                            device=dev)
+        for sh in group:
+            for lo in range(0, len(sh["tp"]), K.CHUNK_PAIRS):
+                K._launch(sh["lanes"], sh["tp"][lo:lo + K.CHUNK_PAIRS],
+                          sh["keys"], sh["counter"], **sh["kw"])
+
+    for sh in shards:
+        K._check(sh["lanes"], sh["tp"], **sh["kw"])
+    enqueue(shards, lambda sh: min(K.CAP_START,
+                                   len(sh["tp"]) * prep["tile"] ** 2))
+    for sh in shards:
+        sh["n"], bad = K._read_back(sh["counter"])
+        if bad:
+            raise ValueError(K._BAD_TILE_PAIR)
+    reruns = [sh for sh in shards
+              if len(sh["keys"]) < sh["n"] <= K.MAX_CAP]
+    enqueue(reruns, lambda sh: sh["n"])
+    for sh in reruns:
+        sh["n"] = K._read_back(sh["counter"])[0]
+    out = []
+    for sh in shards:
+        if sh["n"] > len(sh["keys"]):
+            a, b = K.hamming_tile_pairs(sh["lanes"], sh["tp"], **sh["kw"])
+            a, b = _device.to_host(a, b)
+        else:
+            (key,) = _device.to_host(sh["keys"][:sh["n"]])
+            a, b = np.divmod(key, prep["r_pad"])
+        out.append((sh["si"], a, b))
     return out
 
 
@@ -270,7 +346,10 @@ def sharded_neighbor_pairs_bucketed(
     shards that own the giants; it goes to the dense ring instead, which
     does O(U²/d) work uniformly.
 
-    The shards are swept in turn, each on its own device."""
+    On cards every shard is swept at once, as the reference's
+    ``shard_map`` does (:func:`_sweep_shards_on_cards`); shards placed on
+    one card share its stream.  On the CPU the shards run the plain sweep
+    in turn."""
     mesh = mesh or data_mesh(device=device)
     u, w = packed.shape
     if u <= 1 or max_dist == 0:
@@ -284,22 +363,27 @@ def sharded_neighbor_pairs_bucketed(
                                       word_length=word_length)
     if prep is None:
         return _empty_pairs()
+    if mesh[0].type == "cuda":
+        found = _sweep_shards_on_cards(prep, mesh, max_dist)
+    else:
+        found = []
+        for si, dev in enumerate(mesh):
+            if not prep["urows"][si]:
+                continue
+            lanes, tp = sweep_tensors(prep["rows"][si],
+                                      prep["tile_pairs"][si], dev)
+            a, b = hamming_tile_pairs(
+                lanes, tp, tile=prep["tile"], part_stride=prep["r_pad"],
+                part_valid=prep["urows"][si], max_dist=max_dist,
+                ids=torch.from_numpy(prep["ids"][si]))
+            found.append((si, a.numpy(), b.numpy()))
+    if not found:
+        return _empty_pairs()
     parts_a, parts_b = [], []
-    for si, dev in enumerate(mesh):
-        if not prep["urows"][si]:
-            continue
-        lanes, tp = sweep_tensors(prep["rows"][si], prep["tile_pairs"][si],
-                                  dev)
-        ids = torch.from_numpy(prep["ids"][si]).to(dev)
-        a, b = hamming_tile_pairs(
-            lanes, tp, tile=prep["tile"], part_stride=prep["r_pad"],
-            part_valid=prep["urows"][si], max_dist=max_dist, ids=ids)
-        a, b = a.cpu().numpy(), b.cpu().numpy()
+    for si, a, b in found:
         ga, gb = prep["gmaps"][si][a], prep["gmaps"][si][b]
         parts_a.append(np.minimum(ga, gb))
         parts_b.append(np.maximum(ga, gb))
-    if not parts_a:
-        return _empty_pairs()
     return _dedupe_pairs(np.concatenate(parts_a), np.concatenate(parts_b))
 
 

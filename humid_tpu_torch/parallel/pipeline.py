@@ -365,7 +365,8 @@ def _compute_sharded(files, *, word_length: int = 24, distance: int = 1,
             # Every process runs the engine process 0's router picks (an
             # explicit or environment strategy is the same everywhere).
             nb["strategy"] = MH.broadcast_engine_choice(
-                device=dev, all_gather=all_gather, process_id=p)
+                u=len(uniq), device=dev, all_gather=all_gather,
+                process_id=p)
     pa, pb = find_neighbor_pairs(
         uniq, distance, metric="edit" if edit else "hamming",
         word_length=word_length, device=dev, info=engine, **nb)

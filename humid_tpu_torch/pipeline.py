@@ -127,6 +127,14 @@ def _batch_words(batches, nt_to_take, header_umi_size):
     return W.pack_words(codes), filtered
 
 
+def reads_estimate(files) -> int:
+    """The reads ``files`` hold, estimated from their size before pass 1:
+    ~200 bytes a plain FastQ record under-estimates the rows on purpose
+    (the fused route's feeder holds no device memory that the run never
+    uses, and doubles if the input runs longer)."""
+    return max(_input_bytes_estimate(files) // 200, 1 << 10)
+
+
 def _input_bytes_estimate(files) -> int:
     """Approximate in-memory size of the parsed inputs (gz assumed ~4x).
     Gzip is detected by CONTENT (magic bytes), matching the reader's
@@ -242,7 +250,7 @@ def cluster_dispatch(counts, indptr, indices, *, maximum: bool, pairs=None,
 
         on_device = (pairs is not None and device is not None
                      and len(counts) > DEVICE_COMPONENTS_MIN
-                     and use_device_engine("cc", device))
+                     and use_device_engine("cc", device, len(counts)))
         if info is not None:
             info["components"] = "device" if on_device else "host"
         if on_device:
@@ -447,13 +455,12 @@ def run(
             and not os.environ.get(UNIQUE_ENV_VAR)):
         from ._backend import use_fused_pipeline
 
-        if use_fused_pipeline(dev):
+        # The router weighs the routes at the estimate the feeder is
+        # sized by: the reads are not counted yet.
+        n_est = reads_estimate(files)
+        if use_fused_pipeline(dev, n_est):
             from .ops.fused import DeviceFeeder, fused_fits
 
-            # ~200 bytes a plain FastQ record under-estimates the rows on
-            # purpose (no device memory held that the run never uses); the
-            # feeder doubles if the input runs longer.
-            n_est = max(_input_bytes_estimate(files) // 200, 1 << 10)
             engine["fused_fallback"] = int(not fused_fits(n_est, w, dev))
             if not engine["fused_fallback"]:
                 feeder = DeviceFeeder(w, n_est, device=dev)

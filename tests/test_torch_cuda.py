@@ -362,6 +362,77 @@ def test_mesh_engines_on_cuda_match_cpu(strategy, cuda_device):
     np.testing.assert_array_equal(got[1], want[1])
 
 
+def _mesh_table():
+    rng = np.random.default_rng(81)
+    uniq = unique_words(_words(rng, 20000, 24, pool=2000),
+                        want_inverse=False)[0]
+    return uniq, N.find_neighbor_pairs(uniq, 1, word_length=24,
+                                       strategy="runs", device="cpu")
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 8])
+def test_concurrent_mesh_search_equals_runs(d, cuda_device):
+    """The bucketed mesh search with every shard enqueued at once, d
+    shards over the cards there are, equals the host runs engine."""
+    uniq, want = _mesh_table()
+    assert len(want[0]) > 0
+    for _ in range(2):
+        got = P.sharded_neighbor_pairs_bucketed(
+            uniq, 1, word_length=24, mesh=P.data_mesh(d, cuda_device))
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("cap_start", [1 << 23, 8], ids=["fits", "rerun"])
+def test_concurrent_mesh_search_waits(cap_start, cuda_device, monkeypatch):
+    """Under set_sync_debug_mode("error") the mesh search waits only where
+    it reads: the counters once a shard, once more a shard rerun with the
+    exact capacity, and each shard's keys in one copy; every launch of
+    every shard comes before the first read."""
+    from humid_tpu_torch import _device as D
+    from humid_tpu_torch.parallel import neighbors as PN
+
+    uniq, want = _mesh_table()
+    prep = PN.bucketed_shard_inputs(uniq, 1, 24, 4)
+    shards = sum(1 for n in prep["urows"] if n)
+    log = []
+    read_back, to_host, launch = K._read_back, D.to_host, K._launch
+
+    def waiting(fn, tag):
+        def wrapped(*args):
+            log.append(tag)
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return wrapped
+
+    def launching(*args, **kw):
+        log.append("launch")
+        return launch(*args, **kw)
+
+    monkeypatch.setattr(K, "_read_back", waiting(read_back, "counters"))
+    monkeypatch.setattr(D, "to_host", waiting(to_host, "keys"))
+    monkeypatch.setattr(K, "_launch", launching)
+    monkeypatch.setattr(K, "CAP_START", cap_start)
+    mesh = P.data_mesh(4, cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = P.sharded_neighbor_pairs_bucketed(uniq, 1, word_length=24,
+                                                mesh=mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    reruns = shards if cap_start == 8 else 0
+    assert log.count("counters") == shards + reruns
+    assert log.count("keys") == shards
+    first_read = log.index("counters")
+    assert set(log[:first_read]) == {"launch"}
+    assert log.count("launch") == first_read * (2 if reruns else 1)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("strategy", ["dense", "bucketed"])
 def test_engines_on_cuda_match_cpu(strategy, cuda_device):
     rng = np.random.default_rng(77)

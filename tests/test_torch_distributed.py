@@ -239,7 +239,7 @@ def test_engine_broadcast_and_scaling_report(tmp_path, monkeypatch):
 
     asked = []
     monkeypatch.setattr(B, "pick_neighbor_engine",
-                        lambda dev, shardable_only=False: (
+                        lambda dev, u, shardable_only=False: (
                             asked.append(shardable_only) or "runs_device"))
     files = _dataset(tmp_path, 41, 700, umi_style="underscore")
     kw = dict(write_annotated=True, run_stats=True)
@@ -254,6 +254,34 @@ def test_engine_broadcast_and_scaling_report(tmp_path, monkeypatch):
     assert 0.0 < rep["efficiency"] <= 1.0
     assert {"pack", "neighbors", "cluster", "write_dedup"} <= set(
         rep["phases"])
+
+
+def test_dense_pick_writes_humid_refs_bytes(tmp_path, monkeypatch):
+    """Process 0's router picks the dense K1 sweep (faked here: on the CPU
+    it answers runs): it crosses the engine broadcast, every host sweeps
+    its stripe of the tile pairs, and the merged run writes the bytes of
+    baseline/humid_ref."""
+    import shutil
+
+    from humid_tpu_torch import _backend as B
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not available")
+    monkeypatch.setattr(B, "pick_neighbor_engine",
+                        lambda dev, u, shardable_only=False: "dense")
+    files = _dataset(tmp_path, 43, 900, umi_style="underscore")
+    _run_hosts(files, 3, str(tmp_path / "dist"), run_stats=True,
+               write_annotated=True)
+    assert PP.LAST_ENGINE["strategy"] == "dense"
+    exe = str(tmp_path / "humid_ref")
+    subprocess.run([gxx, "-O2", "-std=c++17", "-o", exe,
+                    os.path.join(REPO, "baseline", "humid_ref.cpp"), "-lz"],
+                   check=True)
+    os.mkdir(tmp_path / "ref")
+    subprocess.run([exe, "-d", str(tmp_path / "ref"), "-l", os.devnull,
+                    "-s", "-a", *files], check=True, capture_output=True)
+    _same_dirs(str(tmp_path / "ref"), str(tmp_path / "dist"))
 
 
 def test_uncoordinated_hosts_leave_parts(tmp_path):

@@ -84,8 +84,10 @@ def test_global_unique_index(length):
 
 def test_engine_codes_follow_each_registry():
     """Both packages derive the broadcast's wire codes the same way, from
-    their own registries (sorted names -> dense ints); the port's holds
-    only engines that honour a shard."""
+    their own registries (sorted names -> dense ints).  The port's
+    shardable engines are the reference's and its dense sweep (whose
+    stripes honour a shard); its mesh row, like the reference's, is not
+    shardable."""
     from humid_tpu import _backend as JB
     from humid_tpu_torch import _backend as B
 
@@ -93,8 +95,10 @@ def test_engine_codes_follow_each_registry():
         by_name, by_code = mod._engine_codes()
         assert by_name == {n: i for i, n in enumerate(sorted(reg))}
         assert {by_code[i]: i for i in by_code} == by_name
-    assert set(B._NEIGHBOR_ENGINES) <= B._SHARDABLE_ENGINES
-    assert B._SHARDABLE_ENGINES == JB._SHARDABLE_ENGINES
+    assert B._SHARDABLE_ENGINES <= set(B._NEIGHBOR_ENGINES)
+    assert B._SHARDABLE_ENGINES == JB._SHARDABLE_ENGINES | {"dense"}
+    assert "sharded_bucketed" in set(B._NEIGHBOR_ENGINES) - (
+        B._SHARDABLE_ENGINES)
 
 
 def test_broadcast_engine_choice_adopts_process_0(monkeypatch):
@@ -102,7 +106,7 @@ def test_broadcast_engine_choice_adopts_process_0(monkeypatch):
 
     picks = iter(["runs_device"])
     monkeypatch.setattr(B, "pick_neighbor_engine",
-                        lambda dev, shardable_only=False: next(picks))
+                        lambda dev, u, shardable_only=False: next(picks))
     codes = MH._engine_codes()[0]
     sent = []
 
@@ -110,12 +114,37 @@ def test_broadcast_engine_choice_adopts_process_0(monkeypatch):
         sent.append(int(arrs[0][0]))
         return [[np.asarray([codes["runs_device"]]), np.asarray([-1])]]
 
-    assert MH.broadcast_engine_choice(device="cpu", all_gather=gather,
+    assert MH.broadcast_engine_choice(u=5000, device="cpu", all_gather=gather,
                                       process_id=0) == "runs_device"
     # Other processes never ask their router and send -1.
-    assert MH.broadcast_engine_choice(device="cpu", all_gather=gather,
+    assert MH.broadcast_engine_choice(u=5000, device="cpu", all_gather=gather,
                                       process_id=1) == "runs_device"
     assert sent == [codes["runs_device"], -1]
+
+
+@pytest.mark.parametrize("engine", ["dense", "runs", "bucketed",
+                                    "runs_device"])
+def test_every_shardable_engine_crosses_the_broadcast(engine, monkeypatch):
+    """Process 0's router is asked at the merged table's size among the
+    shardable engines, and its pick, ``dense`` included, reaches every
+    process through the wire codes."""
+    from humid_tpu_torch import _backend as B
+
+    asked = []
+    monkeypatch.setattr(B, "pick_neighbor_engine",
+                        lambda dev, u, shardable_only=False: (
+                            asked.append((u, shardable_only)) or engine))
+    sent = []
+
+    def gather(arrs):
+        sent.append(np.asarray(arrs[0]).copy())
+        return [[sent[0], np.asarray([-1]), np.asarray([-1])]]
+
+    got = [MH.broadcast_engine_choice(u=178_793, device="cpu",
+                                      all_gather=gather, process_id=p)
+           for p in range(3)]
+    assert got == [engine] * 3
+    assert asked == [(178_793, True)]
 
 
 @pytest.mark.parametrize("n_hosts", [1, 2, 3])

@@ -217,7 +217,7 @@ def test_auto_under_a_shard_takes_host_runs(table, monkeypatch):
     from humid_tpu_torch import _backend as B
 
     monkeypatch.setattr(B, "pick_neighbor_engine",
-                        lambda dev, shardable_only=False: "bucketed")
+                        lambda dev, u, shardable_only=False: "bucketed")
     info = {}
     got = N.find_neighbor_pairs(table, 1, word_length=24, device="cpu",
                                 runs_threshold=100, shard=(0, 2), info=info)
