@@ -14,10 +14,12 @@ Phases, each printing its own line; any failure exits non-zero:
    inner loop spending ceil(w / 2) POPC per column at w = 2 and w = 3.
 3. Kernel vs its plain PyTorch version on the card, on sweep inputs built
    exactly as the neighbour engines build them: the bucketed table of a
-   1M-read sample (~2e5 uniques, the end-to-end run's shape) and of a
-   10M-read sample (~2e6 uniques), both w = 2, tile 2048, m = 1; and a
-   dense table of ~1.6e4 uniques, L = 33 (w = 3), m = 2, with partition
-   padding.  The (a, b) pair arrays must be identical (integer work: no
+   1M-read sample (~2e5 uniques) and of a 10M-read sample (~2e6
+   uniques), both w = 2, tile 2048, m = 1; the dense engine's input of
+   the same 1M-read table (``dense_1M``, every tile pair: the shape the
+   main path gives K1, since the router picks ``dense`` at this size);
+   and a dense table of ~1.6e4 uniques, L = 33 (w = 3), m = 2, with
+   partition padding.  The (a, b) pair arrays must be identical (integer work: no
    tolerance).  Four times per shape, CUDA-event means after a warm-up:
    ``kernel_ms``, the kernel alone (the launches of one call into a
    buffer allocated beforehand, nothing else between the events);
@@ -25,13 +27,16 @@ Phases, each printing its own line; any failure exits non-zero:
    ``ms``, the wrapper ``hamming_tile_pairs`` (allocation, launch, the
    one read-back, the sort); ``plain_ms``, the plain version.  Beside
    them the bound of the exact-integer POPC form for the shape (not the
-   card's: ``bound_ms``) and the kernel's share of it; a kernel time
-   below its bound fails the phase.
+   card's: ``bound_ms``) and the kernel's share of it, and the card's
+   ``roofline_ms``: the lesser of that bound and the one-hot int8
+   tensor-core form's (``roofline``); a kernel time below either fails
+   the phase.  Phases 6 and 8 print both for their shapes too.
 4. End to end: a 1M-read sample made by the benchmark recipe (single-end
-   100 bp, dup factor 8, 30% one-substitution reads; bench.py's
-   gen_dataset), run with ``-n 24 -m 1 -s -a`` on the card in process
-   through ``humid_tpu_torch.run`` by the default route, the one the
-   router's parameters of phase 13 choose (kernel launch counts reset
+   100 bp, dup factor 8, 30% one-substitution reads;
+   ``humid_tpu_torch.tools.bench.gen_dataset``, bench.py's recipe), run
+   with ``-n 24 -m 1 -s -a`` on the card in process through
+   ``humid_tpu_torch.run`` by the default route, the one the router's
+   parameters of phase 13 choose (kernel launch counts reset
    just before, read just after; the engine that ran must be the
    router's pick at the run's size, and on this path it must have
    launched the tile sweep: the dense K1 sweep is the pick at this
@@ -181,15 +186,28 @@ Phases, each printing its own line; any failure exits non-zero:
     overlapped (``--mesh`` fails, after its other checks, unless two
     cards' kernels overlapped at sweep_10M).
 26. One JSON line describing both kernels: ``launches`` on this slice's
-    paths (K1 on e2e_1M by the router's pick, phase 4; K2 in
-    mesh_labels' ``dedup_step``), each earlier path's in
-    ``launches_by_path``;
-    ``ms``, the kernel alone (phase 3's ``kernel_ms`` at the
-    1M-read table for the tile sweep, phase 8's one step for the ring);
+    paths (K1 on bench_1M run in process, phase 27; K2 in mesh_labels'
+    ``dedup_step``), each earlier path's in ``launches_by_path``;
+    ``ms``, the kernel alone (phase 3's ``kernel_ms`` at ``dense_1M``,
+    the main path's shape, for the tile sweep; phase 8's one step for the
+    ring);
     ``wrapper_ms``, the same call through its wrapper; ``plain_ms``; the
-    POPC form's bound for the same work.  The edit path launches neither
-    kernel and adds none.  Then the card's nvidia-smi line and the result
-    line ``{"ok": true, "device": {...}}``.
+    POPC form's bound for the same work and the card's roofline
+    (``roofline_ms``, ``roofline_by``, ``roofline_form``).  The edit path
+    launches neither kernel and adds none.  Then the card's nvidia-smi
+    line and the result line ``{"ok": true, "device": {...}}``.
+27. bench_1M (run before phase 26's line): ``python -m
+    humid_tpu_torch.tools.bench`` (1,000,000 reads, distance 1: bench.py's
+    flags) as a subprocess from phase 24's extension tree and from the
+    checkout (numpy fallbacks), one dataset cache for both; each JSON
+    line (printed as it is, beside the card's nvidia-smi line) must say
+    backend cuda, carry the card, list the tree's host extensions and a
+    measured humid_ref baseline, and the bench's dedup file must equal
+    humid_ref's from the same run.  Without phase 24's tree only the
+    checkout runs, said on its own line.  Then the bench's dataset once
+    in process through ``run()`` with the bench's flags: its K1 launches
+    (``launches_by_path["bench_1M"]``; the ``dense`` pick must launch K1)
+    and its traced kernels.
 
 ``python3 chip_smoke.py --mesh`` (for a machine with several cards)
 runs only the mesh route and what it is held against: phases 13 and 14,
@@ -223,53 +241,6 @@ class SmokeFailure(Exception):
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def gen_reads(path: str, n_reads: int, read_len: int = 100,
-              dup_factor: int = 8, seed: int = 0) -> None:
-    """Synthetic single-end FastQ: ``n_reads`` reads drawn from a pool of
-    n_reads/dup_factor distinct sequences, each with a 30% chance of one
-    random substitution (the recipe of bench.py's gen_dataset)."""
-    rng = np.random.default_rng(seed)
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    pool = bases[rng.integers(0, 4, size=(n_reads // dup_factor, read_len))]
-    idx = rng.integers(0, len(pool), n_reads)
-    seqs = pool[idx].copy()
-    mut = rng.random(n_reads) < 0.3
-    pos = rng.integers(0, read_len, n_reads)
-    seqs[np.flatnonzero(mut), pos[mut]] = bases[
-        rng.integers(0, 4, int(mut.sum()))
-    ]
-    write_fastq(path, seqs)
-
-
-def write_fastq(path: str, seqs: np.ndarray) -> None:
-    """[n, read_len] uint8 base characters -> FastQ records named
-    @read000000000, @read000000001, ..., every quality 'I'."""
-    n_reads, read_len = seqs.shape
-    with open(path, "wb") as f:
-        chunk = 1 << 18
-        for lo in range(0, n_reads, chunk):
-            hi = min(lo + chunk, n_reads)
-            k = hi - lo
-            ids = np.arange(lo, hi, dtype=np.int64)
-            digits = np.empty((k, 9), np.uint8)
-            v = ids
-            for p in range(8, -1, -1):
-                digits[:, p] = (v % 10) + ord("0")
-                v = v // 10
-            nlen = 5 + 9  # "@read" + 9 digits
-            rec_len = nlen + 1 + read_len + 3 + read_len + 1
-            rec = np.full((k, rec_len), ord("I"), np.uint8)
-            rec[:, 0:5] = np.frombuffer(b"@read", np.uint8)
-            rec[:, 5:14] = digits
-            rec[:, 14] = 10
-            rec[:, 15:15 + read_len] = seqs[lo:hi]
-            rec[:, 15 + read_len] = 10
-            rec[:, 16 + read_len] = ord("+")
-            rec[:, 17 + read_len] = 10
-            rec[:, rec_len - 1] = 10
-            f.write(rec.tobytes())
 
 
 def inner_loop_popc(sass: str, kernel: str) -> dict:
@@ -351,10 +322,8 @@ def bound_ms(evaluations: int, w: int, n_bytes: int, card: dict) -> dict:
     POPC always comes out ahead of the integer operations (1/16 against
     3/64 of a clock per plane pair); both are computed so that a cheaper
     formulation of either would show.  It is this form's bound, not the
-    card's: the one-hot int8 tensor-core form, which nobody has built
-    here, is reckoned at about half of it (PERF.md, open questions), so a
-    share of this bound says how well the POPC loop runs, not how far the
-    card is from its limit."""
+    card's (``roofline``), so a share of this bound says how well the POPC
+    loop runs, not how far the card is from its limit."""
     plane_pairs = -(-w // 2)
     per_s = card["sms"] * card["sm_hz"]
     popc_ms = evaluations * plane_pairs / (16 * per_s) * 1e3
@@ -365,14 +334,44 @@ def bound_ms(evaluations: int, w: int, n_bytes: int, card: dict) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def within_bound(name: str, kernel_ms: float, bound: dict) -> float:
+#: Peak int8 tensor-core rate of one H100 SXM, dense (NVIDIA's data sheet,
+#: at its 700 W limit), in operations a second.
+INT8_OPS_PER_S = 1.979e15
+
+
+def roofline(evaluations: int, w: int, n_bytes: int, card: dict) -> dict:
+    """The card's least time for ``evaluations`` word pairs of ``w``
+    lanes: the lesser of two formulations' bounds, each the larger of its
+    bytes over the memory rate and its operations over the rate of the
+    unit that does them:
+
+    * the exact-integer POPC form, as ``bound_ms`` computes it;
+    * the one-hot int8 tensor-core form (the TPU kernel's MXU matmul):
+      each base a one-hot of 4, so a pair costs 4 x 16w int8
+      multiply-adds, 2 operations each, at ``INT8_OPS_PER_S``.
+
+    ``roofline_form`` names the form that sets it ("popc" or
+    "int8_mma")."""
+    popc = bound_ms(evaluations, w, n_bytes, card)
+    bytes_ms = n_bytes / 3.35e12 * 1e3
+    mma_ms = evaluations * 4 * 16 * w * 2 / INT8_OPS_PER_S * 1e3
+    mma = {"bound_ms": max(mma_ms, bytes_ms),
+           "bound_by": "operations" if mma_ms >= bytes_ms else "bytes"}
+    form, best = min((("popc", popc), ("int8_mma", mma)),
+                     key=lambda f: f[1]["bound_ms"])
+    return {"roofline_ms": best["bound_ms"], "roofline_by": best["bound_by"],
+            "roofline_form": form}
+
+
+def within_bound(name: str, kernel_ms: float, bound: dict,
+                 key: str = "bound_ms") -> float:
     """The bound's share of the kernel's time (1.0: the kernel runs at the
-    bound).  A kernel faster than its bound means the bound or the timing
-    is wrong: that fails."""
-    if kernel_ms < bound["bound_ms"]:
+    bound); ``key`` names the bound in ``bound``.  A kernel faster than its
+    bound means the bound or the timing is wrong: that fails."""
+    if kernel_ms < bound[key]:
         raise SmokeFailure(f"{name}: kernel {kernel_ms} ms is below its "
-                           f"bound {bound['bound_ms']} ms")
-    return bound["bound_ms"] / kernel_ms
+                           f"{key} {bound[key]} ms")
+    return bound[key] / kernel_ms
 
 
 def sweep_kernel_ms(lanes, tp, kw, n_pairs: int, reps: int) -> float:
@@ -433,14 +432,17 @@ def kernel_vs_plain(name, rows, tile_pairs, *, tile, u_pad, u, max_dist,
     plain_ms = time_cuda(lambda: K.hamming_tile_pairs_plain(lanes, tp, **kw),
                          plain_reps)
     evaluations = sweep_evaluations(len(rows), tile_pairs, tile, u_pad, u)
-    bound = bound_ms(evaluations, int(lanes.shape[1]),
-                     lanes.numel() * 4 + tp.numel() * 4 + 8 * len(ka), card)
+    n_bytes = lanes.numel() * 4 + tp.numel() * 4 + 8 * len(ka)
+    bound = bound_ms(evaluations, int(lanes.shape[1]), n_bytes, card)
+    roof = roofline(evaluations, int(lanes.shape[1]), n_bytes, card)
     out = {"rows": int(lanes.shape[0]), "w": int(lanes.shape[1]),
            "tile_pairs": int(len(tp)), "pairs": int(len(ka)),
            "max_abs_err": err, "kernel_ms": kernel_ms,
            "no_hit_kernel_ms": no_hit_ms, "ms": ms,
            "plain_ms": plain_ms, "evaluations": evaluations, **bound,
-           "bound_share": within_bound(name, kernel_ms, bound)}
+           "bound_share": within_bound(name, kernel_ms, bound), **roof,
+           "roofline_share": within_bound(name, kernel_ms, roof,
+                                          "roofline_ms")}
     say(f"phase 3 {name}: kernel == plain (tolerance 0, integer pairs); "
         f"{json.dumps(out)}")
     return out
@@ -459,6 +461,14 @@ def sweep_phase(device, card) -> dict:
         results[name] = kernel_vs_plain(
             name, rows, tps, tile=b, u_pad=u_pad, u=len(uniq), max_dist=1,
             device=device, card=card)
+    # The shape the main path gives K1: at this size ``auto`` picks the
+    # dense engine (phase 13), every tile pair of the 1M-read table.
+    uniq = tables["bucketed_1M_reads"]
+    rows, tps, b, u_pad = dense_inputs(uniq, 2048)
+    say(f"phase 3 dense_1M: {len(uniq)} uniques, {len(tps)} tile pairs")
+    results["dense_1M"] = kernel_vs_plain(
+        "dense_1M", rows, tps, tile=b, u_pad=u_pad, u=len(uniq), max_dist=1,
+        device=device, card=card, reps=2)
     uniq = tables["dense_L33_m2"] = sample_table(72_000, 33, seed=33,
                                                       n_subst=2)
     rows, tps, b, u_pad = dense_inputs(uniq, 2048)
@@ -509,9 +519,11 @@ def end_to_end_phase(n_reads: int, device: str = "cuda") -> dict:
     import humid_tpu_torch
     from humid_tpu_torch.ops import cuda_hamming
 
+    from humid_tpu_torch.tools.bench import gen_dataset
+
     fq = os.path.join(WORK, "sample.fastq")
     t0 = time.perf_counter()
-    gen_reads(fq, n_reads, seed=5)
+    gen_dataset(fq, n_reads, seed=5)
     say(f"phase 4: generated {n_reads} reads in "
         f"{time.perf_counter() - t0:.3f} s")
     flags = ["-n", "24", "-m", "1", "-s", "-a"]
@@ -684,16 +696,20 @@ def ids_phase(device, uniq, card) -> None:
     evaluations = sweep_evaluations(
         len(prep["rows"][0]), prep["tile_pairs"][0], prep["tile"],
         prep["r_pad"], prep["urows"][0])
-    bound = bound_ms(evaluations, int(lanes.shape[1]),
-                     lanes.numel() * 4 + tp.numel() * 4 + ids.numel() * 4
-                     + 8 * len(got[0]), card)
+    n_bytes = (lanes.numel() * 4 + tp.numel() * 4 + ids.numel() * 4
+               + 8 * len(got[0]))
+    bound = bound_ms(evaluations, int(lanes.shape[1]), n_bytes, card)
     share = within_bound("phase 6", kernel_ms, bound)
+    roof = roofline(evaluations, int(lanes.shape[1]), n_bytes, card)
+    roof_share = within_bound("phase 6", kernel_ms, roof, "roofline_ms")
     say(f"phase 6: tile sweep with ids == plain (tolerance 0); shard 0 of "
         f"4: {prep['urows'][0]} rows, tile {prep['tile']}, {len(tp)} tile "
         f"pairs, {len(got[0])} pairs ({len(free[0])} without the mask), "
         f"{evaluations} evaluations; kernel alone {kernel_ms:.4f} ms, bound "
         f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; share "
-        f"{share:.3f}); wrapper {ms:.3f} ms with ids, {free_ms:.3f} ms "
+        f"{share:.3f}); roofline {roof['roofline_ms']:.4f} ms "
+        f"({roof['roofline_form']}, {roof['roofline_by']}; share "
+        f"{roof_share:.3f}); wrapper {ms:.3f} ms with ids, {free_ms:.3f} ms "
         f"without; plain version {plain_ms:.3f} ms")
 
 
@@ -819,11 +835,12 @@ def ring_main_shape_phase(device, uniq, card) -> dict:
         raise SmokeFailure(f"phase 8: the timed step counted "
                            f"{int(buf.counter.item())} pairs, expected "
                            f"{len(step[0])}")
-    step_bound = bound_ms(valid[0] * valid[1], w,
-                          2 * b * w * 4 + 8 * len(step[0]), card)
-    ring_bound = bound_ms(evaluations, w,
-                          len(steps) * 2 * b * w * 4 + 8 * len(want[0]),
-                          card)
+    step_bytes = 2 * b * w * 4 + 8 * len(step[0])
+    ring_bytes = len(steps) * 2 * b * w * 4 + 8 * len(want[0])
+    step_bound = bound_ms(valid[0] * valid[1], w, step_bytes, card)
+    ring_bound = bound_ms(evaluations, w, ring_bytes, card)
+    step_roof = roofline(valid[0] * valid[1], w, step_bytes, card)
+    ring_roof = roofline(evaluations, w, ring_bytes, card)
     out = {"uniques": u, "shards": d, "block_rows": b,
            "launches_per_ring": launches, "evaluations": evaluations,
            "pairs": len(want[0]), "kernel_ms_all_steps": kernel_ms,
@@ -831,12 +848,17 @@ def ring_main_shape_phase(device, uniq, card) -> dict:
            "ring_bound_ms": ring_bound["bound_ms"],
            "ring_bound_share": within_bound("phase 8 ring", kernel_ms,
                                             ring_bound),
+           "ring_roofline_ms": ring_roof["roofline_ms"],
+           "ring_roofline_share": within_bound("phase 8 ring", kernel_ms,
+                                               ring_roof, "roofline_ms"),
            "ring_wall_ms": ring_wall, "slot_bytes": b * w * 4,
            "step_kernel_ms": step_kernel_ms, "step_ms": ms,
            "step_plain_ms": plain_ms, "max_abs_err": step_err,
            **step_bound,
            "bound_share": within_bound("phase 8 step", step_kernel_ms,
-                                       step_bound)}
+                                       step_bound), **step_roof,
+           "roofline_share": within_bound("phase 8 step", step_kernel_ms,
+                                          step_roof, "roofline_ms")}
     say(f"phase 8: ring at the main path's size == bucketed sweep; "
         f"{json.dumps(out)}")
     return out
@@ -1334,6 +1356,7 @@ def edit_indel_end_to_end_phase(e2e: dict, table, length: int = 33,
     Hamming distance keeps apart."""
     import humid_tpu_torch
     from humid_tpu_torch import words as W
+    from humid_tpu_torch.tools.bench import write_fastq
 
     rng = np.random.default_rng(12)
     idx = np.concatenate([np.arange(len(table)),
@@ -1421,7 +1444,7 @@ def calibration_phase(device, tables) -> dict:
 
 def sample_reads(n_reads: int, seed: int, length: int = 24) -> np.ndarray:
     """[n_reads, w] packed words of an n-read sample by the benchmark recipe
-    (gen_reads' pool of n/8 sequences, 30% of reads with one substitution
+    (gen_dataset's pool of n/8 sequences, 30% of reads with one substitution
     at a uniform position of 100), first ``length`` bases, in read order."""
     from humid_tpu_torch import words as W
 
@@ -1756,6 +1779,8 @@ def write_low_entropy_reads(path: str, n_reads: int, seed: int) -> None:
     """Phase 4's recipe, with 5,000 pool sequences (of n_reads / 8) sharing
     their first 12 bases: at -n 24 -m 1 their words form one run of some
     6,000 rows in the first pigeonhole partition, past ``run_cap``."""
+    from humid_tpu_torch.tools.bench import write_fastq
+
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     pool = bases[rng.integers(0, 4, size=(n_reads // 8, 100))]
@@ -1988,9 +2013,10 @@ def mp_edit_gz_phase(e2e: dict, device: str = "cuda",
     import gzip
 
     import humid_tpu_torch
+    from humid_tpu_torch.tools.bench import gen_dataset
 
     fq = os.path.join(WORK, "sample_200k.fastq")
-    gen_reads(fq, n_reads, seed=19)
+    gen_dataset(fq, n_reads, seed=19)
     fq_gz = fq + ".gz"
     with open(fq, "rb") as src, gzip.open(fq_gz, "wb", compresslevel=1) as g:
         shutil.copyfileobj(src, g, 1 << 24)
@@ -2378,7 +2404,7 @@ def host_extensions_phase(e2e: dict, device: str = "cuda") -> dict | None:
     env = dict(os.environ, PYTHONPATH=tree, HUMID_TPU_TORCH_DEVICE=device,
                HUMID_TPU_TORCH_CALIB_PATH=os.path.join(tree, "calib.json"))
     env.pop("HUMID_TPU_TORCH_CLUSTER", None)
-    out = {"build_s": build_s, "openmp": openmp}
+    out = {"build_s": build_s, "openmp": openmp, "tree": tree, "env": env}
     for name, extra in (("default", {}),
                         ("cluster_device", {"HUMID_TPU_TORCH_CLUSTER":
                                             "device"})):
@@ -2407,6 +2433,94 @@ def host_extensions_phase(e2e: dict, device: str = "cuda") -> dict | None:
         f"byte-identical to "
         + ("baseline/humid_ref" if e2e["humid_ref"] else "phase 4's outputs"))
     return out
+
+
+BENCH_READS = 1_000_000
+
+
+def bench_phase(ext: dict | None, card: str, device: str = "cuda") -> int:
+    """Phase 27 (bench_1M): ``python -m humid_tpu_torch.tools.bench`` at
+    1,000,000 reads, distance 1, as a subprocess (a) from phase 24's
+    extension tree, with its calibration file and kernel builds, and (b)
+    from the checkout, where the numpy fallbacks run.  Both share one
+    dataset cache (TMPDIR under build/chip_smoke).  Each JSON line must say
+    ``backend`` cuda, carry the card, list the tree's host extensions and
+    a measured humid_ref baseline, and the bench's dedup file must equal
+    the one humid_ref wrote in the same run.  Then the bench's dataset
+    once in process through ``run()`` with the bench's flags: the kernels
+    of its traced run; returns its K1 launches (``bench_1M``).  Without
+    phase 24's tree (``ext`` None) only (b) runs."""
+    import humid_tpu_torch
+    from humid_tpu_torch.ops import cuda_hamming
+    from humid_tpu_torch.tools.bench import EXTENSIONS
+
+    tmp = os.path.join(WORK, "tmp")
+    os.makedirs(tmp, exist_ok=True)
+    bench_dir = os.path.join(tmp, "humid_tpu_torch_bench")
+    base = dict(os.environ, TMPDIR=tmp, HUMID_TPU_TORCH_DEVICE=device)
+    runs = []
+    if ext is None:
+        say("phase 27 bench: no extension tree (phase 24 could not build "
+            "the host extensions); the checkout's run only")
+    else:
+        # The bench builds baseline/humid_ref beside its package.
+        os.makedirs(os.path.join(ext["tree"], "baseline"), exist_ok=True)
+        shutil.copy2(os.path.join(REPO, "baseline", "humid_ref.cpp"),
+                     os.path.join(ext["tree"], "baseline"))
+        runs.append(("extensions", ext["tree"], {**ext["env"], "TMPDIR": tmp},
+                     True))
+    runs.append(("numpy_fallbacks", REPO, base, False))
+    for name, cwd, env, built in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "humid_tpu_torch.tools.bench",
+             "--reads", str(BENCH_READS), "--distance", "1"],
+            cwd=cwd, env=env, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            raise SmokeFailure(f"phase 27 {name}: the bench failed:\n"
+                               f"{proc.stderr[-4000:]}")
+        line = proc.stdout.strip().splitlines()[-1]
+        rec = json.loads(line)
+        want_ext = {n: built for n in EXTENSIONS}
+        problems = [what for what, ok in (
+            ("backend", rec["backend"] == device),
+            ("card", bool(rec["card"])),
+            ("host_extensions", rec["host_extensions"] == want_ext),
+            ("baseline_source", rec["baseline_source"] == "humid_ref"))
+            if not ok]
+        if problems:
+            raise SmokeFailure(f"phase 27 {name}: {problems} wrong in {line}")
+        # Compared now: the next run overwrites both directories.
+        _same_files(os.path.join(bench_dir, "out"),
+                    os.path.join(bench_dir, "out_ref"))
+        say(f"phase 27 {name} ({seconds:.3f} s in all; {card}):")
+        say(line)
+        for note in proc.stderr.strip().splitlines():
+            if note.startswith("#"):
+                say(f"phase 27 {name} {note}")
+        say(f"phase 27 {name}: dedup output byte-identical to "
+            f"baseline/humid_ref's on the same file")
+
+    fq = os.path.join(bench_dir, f"bench_{BENCH_READS}.fastq")
+    last = {}
+
+    def bench_run():
+        cuda_hamming.LAUNCHES = 0
+        res = humid_tpu_torch.run([fq], distance=1, write_dedup=True,
+                                  dir_name=os.path.join(WORK, "out_bench"),
+                                  log_name=os.devnull, device=device)
+        last.update(engine=res.extra["engine"], unique=res.unique,
+                    k1=cuda_hamming.LAUNCHES)
+
+    traced = kernels_launched(bench_run, "bench_1M", "hamming_sweep_kernel")
+    check_launches("phase 27 bench_1M", last["engine"], last["k1"])
+    _same_files(os.path.join(WORK, "out_bench"),
+                os.path.join(bench_dir, "out_ref"))
+    say(f"phase 27 bench_1M in process: {last['unique']} uniques, engine "
+        f"{json.dumps(last['engine'])}, K1 launches {last['k1']}; traced "
+        f"{json.dumps(traced)}; dedup output == humid_ref's")
+    return last["k1"]
 
 
 def mesh_main(device, smi_lines) -> int:
@@ -2574,18 +2688,19 @@ def main() -> int:
     startup_phase()
     directional = directional_device_phase(e2e, device, card_info)
     profile_phase(e2e, device)
-    host_extensions_phase(e2e)
+    ext = host_extensions_phase(e2e)
     mesh = mesh_search_phase(device, tables, runs_pairs)
+    bench_k1 = bench_phase(ext, card)
 
-    main_shape = sweeps["bucketed_1M_reads"]
+    main_shape = sweeps["dense_1M"]
     no_library = None  # no single PyTorch call computes either sweep
     say(json.dumps({"kernels": [{
         "name": "hamming_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/hamming_sweep.cu",
         "replaces": "humid_tpu/ops/pallas_hamming.py:60",
-        # This slice's path: e2e_1M by the router's pick (phase 4); the
+        # This slice's path: bench_1M run in process (phase 27); the
         # earlier paths' counts beside it.
-        "launches": e2e["launches"],
+        "launches": bench_k1,
         "launches_by_path": {
             "auto_e2e_1M": e2e["launches"],
             "mesh_bucketed_sweep_1M": mesh["bucketed_1M_reads"]["launches"],
@@ -2595,7 +2710,8 @@ def main() -> int:
             "mp_edit": mp_edit_gz["mp_edit"]["k1"],
             "mp_gz": mp_edit_gz["mp_gz"]["k1"],
             "big_runs_default": routes["big_runs_default"]["launches"],
-            "bucketed_e2e_1M": routes["bucketed"]["launches"]},
+            "bucketed_e2e_1M": routes["bucketed"]["launches"],
+            "bench_1M": bench_k1},
         "max_abs_err": max(r["max_abs_err"] for r in sweeps.values()),
         # ms: the kernel alone, for both kernels; wrapper_ms: through the
         # wrapper (allocation, read-back and sort included).
@@ -2603,6 +2719,11 @@ def main() -> int:
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
+        # The card's least time: the lesser of the POPC form's bound and
+        # the one-hot int8 tensor-core form's (``roofline``).
+        "roofline_ms": main_shape["roofline_ms"],
+        "roofline_by": main_shape["roofline_by"],
+        "roofline_form": main_shape["roofline_form"],
         "library_ms": no_library}, {
         "name": "ring_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/ring_sweep.cu",
@@ -2617,6 +2738,9 @@ def main() -> int:
         "ms": ring["step_kernel_ms"], "wrapper_ms": ring["step_ms"],
         "plain_ms": ring["step_plain_ms"],
         "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
+        "roofline_ms": ring["roofline_ms"],
+        "roofline_by": ring["roofline_by"],
+        "roofline_form": ring["roofline_form"],
         "library_ms": no_library}]}))
     say(card)
     print(json.dumps({"ok": True, "device": {

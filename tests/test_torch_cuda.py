@@ -6,8 +6,9 @@ engines included) on the card against the CPU, device unique counting and
 the fused device-resident route against the CPU (with the host waits it
 may make and the reuse of its pinned staging buffers), the device
 directional clustering against the CPU (one host wait a round) and
-through run() against the default route, and the CLI on the card
-against baseline/humid_ref.
+through run() against the default route, and the CLI and the bench
+(``humid_tpu_torch.tools.bench``) on the card against
+baseline/humid_ref.
 
 They skip where torch.cuda.is_available() is False.  This file imports no
 jax, so it also runs where JAX is not installed:
@@ -1003,3 +1004,25 @@ def test_device_directional_run_on_cuda_matches_default(cuda_device,
     for name in sorted(os.listdir(tmp_path / "default")):
         assert ((tmp_path / "default" / name).read_bytes()
                 == (tmp_path / "device" / name).read_bytes()), name
+
+
+def test_bench_on_cuda_matches_humid_ref(cuda_device, humid_ref, tmp_path,
+                                         monkeypatch, capsys):
+    """The port's bench at 65,536 reads on the card: its JSON line names
+    the card and a measured humid_ref baseline, and its dedup output is
+    humid_ref's on the same file with the same flags."""
+    import json
+
+    from humid_tpu_torch.tools import bench as B
+
+    monkeypatch.setenv("HUMID_TPU_TORCH_CALIBRATION", "off")
+    n = 65_536
+    record = B.bench(n, work_dir=str(tmp_path), budget=0.0,
+                     humid_ref=humid_ref, device=cuda_device)
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == record
+    assert record["backend"] == "cuda" and record["card"]
+    assert record["baseline_source"] == "humid_ref" and record["value"] > 0
+    assert record["engine"] is not None
+    name = f"bench_{n}_dedup.fastq"
+    assert ((tmp_path / "out" / name).read_bytes()
+            == (tmp_path / "out_ref" / name).read_bytes())
