@@ -186,16 +186,18 @@ Phases, each printing its own line; any failure exits non-zero:
     overlapped (``--mesh`` fails, after its other checks, unless two
     cards' kernels overlapped at sweep_10M).
 26. One JSON line describing both kernels: ``launches`` on this slice's
-    paths (K1 on bench_1M run in process, phase 27; K2 in mesh_labels'
-    ``dedup_step``), each earlier path's in ``launches_by_path``;
+    path (the fuzz_oracle campaign, phase 28), each earlier path's in
+    ``launches_by_path``;
     ``ms``, the kernel alone (phase 3's ``kernel_ms`` at ``dense_1M``,
     the main path's shape, for the tile sweep; phase 8's one step for the
     ring);
     ``wrapper_ms``, the same call through its wrapper; ``plain_ms``; the
     POPC form's bound for the same work and the card's roofline
     (``roofline_ms``, ``roofline_by``, ``roofline_form``).  The edit path
-    launches neither kernel and adds none.  Then the card's nvidia-smi
-    line and the result line ``{"ok": true, "device": {...}}``.
+    launches neither kernel and adds none.  ``sanitizer``: phase 31's
+    result for the kernel.  Then the card's nvidia-smi line and the
+    result line ``{"ok": true, "device": {...}}``.  Every phase's seconds
+    are printed after it ("phase N seconds").
 27. bench_1M (run before phase 26's line): ``python -m
     humid_tpu_torch.tools.bench`` (1,000,000 reads, distance 1: bench.py's
     flags) as a subprocess from phase 24's extension tree and from the
@@ -208,6 +210,37 @@ Phases, each printing its own line; any failure exits non-zero:
     in process through ``run()`` with the bench's flags: its K1 launches
     (``launches_by_path["bench_1M"]``; the ``dense`` pick must launch K1)
     and its traced kernels.
+
+28. fuzz_oracle (run after phase 27): ``python -m
+    humid_tpu_torch.tools.fuzz_oracle 100 10000 --shards 8`` on the card
+    with phase 13's calibration file: 100 configs of the JAX package's
+    wide fuzz draw (every engine forced, degenerate pools, the fused
+    route, device directional clustering, ``-e``) against the string
+    oracle; K1 and K2 must both have launched in the campaign (the
+    kernels line's ``launches``: the tool's process starts at 0).
+29. fuzz_multiproc: ``python -m humid_tpu_torch.tools.fuzz_multiproc 4
+    42000``: 4 random configs as 2-3 CLI processes of one gloo group on
+    the card, byte-identical to the in-process run; seconds per config.
+30. engine_xover (run after phase 31's host half has ended, so that no
+    compile shares the host with its timings): ``engine_xover.measure``
+    in process at 2^18, 2^20, 2^22 and 2^23 uniques, all six engines,
+    best of 2; every engine's pairs equal (tolerance 0); the router's
+    pick and predictions beside the fastest engine, and its fused
+    decision beside the two whole-pipeline engines.  A pick slower than
+    the fastest by more than the spread + 10% is printed as a FAULT line
+    and does not fail the phase (a measurement, not a check).
+31. check_native: the host half (``--host``: the extensions rebuilt with
+    AddressSanitizer in build/check_native/tree/, the jax-free native
+    tests and 20 fuzz configs under it) runs in the background from
+    phase 28 on; without a compiler, Python headers or a compiler with
+    libasan it says so on its own line.  The device half (``--device``,
+    after phase 30): K1 and K2's small edge-case shapes under
+    compute-sanitizer's memcheck, racecheck, initcheck and synccheck,
+    then with guard rows and sentinel words on the card.  Any error found
+    fails the phase.  Where the tool cannot attach to the card, a line
+    says "NOT SHOWN": zero errors under those tools is not shown, and
+    only the guard checks ran.  The kernels line gives each kernel's
+    ``sanitizer`` statuses, ``zero_errors_shown`` and guarded cases.
 
 ``python3 chip_smoke.py --mesh`` (for a machine with several cards)
 runs only the mesh route and what it is held against: phases 13 and 14,
@@ -225,6 +258,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -2523,6 +2557,211 @@ def bench_phase(ext: dict | None, card: str, device: str = "cuda") -> int:
     return last["k1"]
 
 
+def _tool(name: str, args, timeout: int, env=None):
+    """``python -m humid_tpu_torch.tools.<name> args`` from the checkout on
+    the card: (return code, stdout, its last line as JSON or None,
+    seconds)."""
+    t0 = time.perf_counter()
+    # Its own process group: a timeout stops the tool's children too.
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"humid_tpu_torch.tools.{name}", *args],
+        cwd=REPO, env=dict(os.environ, HUMID_TPU_TORCH_DEVICE="cuda",
+                           **(env or {})),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        _stop_group(proc)
+    seconds = time.perf_counter() - t0
+    try:
+        last = json.loads(out.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        last = None
+    if proc.returncode or last is None:
+        raise SmokeFailure(f"{name} {' '.join(args)} exited "
+                           f"{proc.returncode} after {seconds:.3f} s:\n"
+                           f"{out[-6000:]}{err[-4000:]}")
+    return out, last, seconds
+
+
+FUZZ_CONFIGS = 100
+MP_CONFIGS = 4
+
+
+def fuzz_oracle_phase() -> dict:
+    """Phase 28: ``python -m humid_tpu_torch.tools.fuzz_oracle`` on the
+    card, 100 configs from seed 10,000 on 8 shards, with phase 13's
+    calibration file: every config must match the string oracle, and the
+    campaign must have launched K1 and K2 (counted in the tool's process,
+    which starts at 0)."""
+    _, out, seconds = _tool("fuzz_oracle", [str(FUZZ_CONFIGS), "10000",
+                                            "--shards", "8"], timeout=900)
+    out["process_s"] = seconds
+    say(f"phase 28 fuzz_oracle: {json.dumps(out)}")
+    if out["failures"] or out["configs"] != FUZZ_CONFIGS:
+        raise SmokeFailure(f"phase 28: {out['failures']} configs differ "
+                           f"from the oracle: {out['failed_seeds']}")
+    short = [k for k, n in out["launches"].items() if n < 1]
+    if short:
+        raise SmokeFailure(f"phase 28: the campaign launched no {short}")
+    say(f"phase 28 fuzz_oracle: {FUZZ_CONFIGS} configs == the string "
+        f"oracle; cases per engine {json.dumps(out['engines'])}; launches "
+        f"{json.dumps(out['launches'])}; {seconds:.3f} s")
+    return out
+
+
+def fuzz_multiproc_phase() -> dict:
+    """Phase 29: ``python -m humid_tpu_torch.tools.fuzz_multiproc`` on the
+    card, MP_CONFIGS configs from seed 42,000 (2-3 CLI processes each,
+    one gloo group on the one card), each byte-identical to the
+    in-process run."""
+    text, out, seconds = _tool("fuzz_multiproc", [str(MP_CONFIGS), "42000"],
+                               timeout=MP_CONFIGS * 330)
+    for line in text.splitlines():
+        if line.startswith("["):
+            say(f"phase 29 {line}")
+    if out["failures"]:
+        raise SmokeFailure(f"phase 29: seeds {out['failed_seeds']} differ")
+    say(f"phase 29 fuzz_multiproc: {MP_CONFIGS} configs byte-identical to "
+        f"the single-process run; seconds per config "
+        f"{json.dumps(out['seconds_per_config'])}; {seconds:.3f} s")
+    return out
+
+
+def engine_xover_phase(device, card: str) -> dict:
+    """Phase 30: ``engine_xover.measure`` in process at its four default
+    sizes (2^18-2^23 uniques) with all six engines, best of 2: every
+    engine's pairs equal (tolerance 0; the tool raises otherwise); the
+    router's pick among the table engines and its predicted ms beside the
+    fastest measured, and its fused decision at the reads' count beside
+    the two whole-pipeline engines.  A pick slower than the fastest by
+    more than the calibration's spread + 10% is printed as a fault, not
+    failed: it is a measurement."""
+    from humid_tpu_torch import _backend as B
+    from humid_tpu_torch.tools import engine_xover as X
+
+    c = B.engine_constants(device)
+    margin = float(c["spread"]) + 0.1
+    out = {}
+    for u in X.DEFAULT_SIZES:
+        gen, lines, _ = X.measure(u, X.TABLE_ENGINES + X.WHOLE_ENGINES,
+                                  runs=2, device=device, card=card)
+        say(f"phase 30 generator: {json.dumps(gen)}")
+        for line in lines:
+            say(f"phase 30 {json.dumps(line)}")
+        ms = {ln["engine"]: ln["best_s"] * 1e3 for ln in lines}
+        table_ms = {e: ms[e] for e in X.TABLE_ENGINES}
+        pick = B.pick_neighbor_engine(device, gen["u"])
+        fastest = min(table_ms, key=table_ms.get)
+        rec = {"u": gen["u"], "n_reads": gen["n_reads"],
+               "generator_s": gen["generator_s"], "wall_ms": ms,
+               "pairs": lines[0]["pairs"], "pick": pick, "fastest": fastest,
+               "predicted_ms": {e: t / 1e6 for e, t in B.neighbor_times_ns(
+                   c, gen["u"]).items()},
+               "fused_pick": B.use_fused_pipeline(device, gen["n_reads"]),
+               "fused_predicted_ms": [t / 1e6 for t in B.fused_times_ns(
+                   c, gen["n_reads"])],
+               "pick_slower_by": table_ms[pick] / table_ms[fastest] - 1}
+        rec["fault"] = rec["pick_slower_by"] > margin
+        out[u] = rec
+        say(f"phase 30 {u}: all six engines' pairs equal (tolerance 0); "
+            f"{json.dumps(rec)}")
+        if rec["fault"]:
+            say(f"phase 30 FAULT (recorded, not failed): at {gen['u']} "
+                f"uniques the router picks {pick} ({table_ms[pick]:.3f} ms), "
+                f"slower than {fastest} ({table_ms[fastest]:.3f} ms) by more "
+                f"than the spread + 10% ({margin:.3f})")
+    return out
+
+
+def _stop_group(proc) -> None:
+    """Kill what is left of ``proc``'s process group; reap ``proc``."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def check_native_start():
+    """Phase 31's host half (``check_native --host``, CPU only), started in
+    the background in its own process group; :func:`check_native_wait`
+    collects it."""
+    log = open(os.path.join(WORK, "check_native_host.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "humid_tpu_torch.tools.check_native",
+         "--host"], cwd=REPO, stdout=log,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    return proc, log, time.perf_counter()
+
+
+def check_native_wait(host) -> dict:
+    """Phase 31's host half, collected: ASan build, native tests, fuzz
+    (or the line that says why it could not run)."""
+    proc, log, t0 = host
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        _stop_group(proc)
+    log.seek(0)
+    text = log.read()
+    log.close()
+    for line in text.splitlines()[:-1]:
+        if line.startswith("check_native"):
+            say(f"phase 31 {line}")
+    if rc:
+        raise SmokeFailure(f"phase 31 host half exited {rc}:\n"
+                           f"{text[-8000:]}")
+    rec = json.loads(text.strip().splitlines()[-1])["host"]
+    rec["process_s"] = time.perf_counter() - t0
+    return rec
+
+
+def check_native_phase(host: dict) -> dict:
+    """Phase 31: ``check_native --device`` (the kernel cases under
+    compute-sanitizer's four tools, then the guarded cases on the card)
+    beside the host half's result.  Fails on any error either found; a
+    sanitizer or a toolchain that cannot run here is said on its own
+    line."""
+    text, rec, seconds = _tool("check_native", ["--device"], timeout=900)
+    for line in text.splitlines()[:-1]:
+        say(f"phase 31 {line}")
+    dev = rec["device"]
+    if dev["errors"]:
+        raise SmokeFailure(f"phase 31: compute-sanitizer found errors: "
+                           f"{json.dumps(dev['sanitizer'])}")
+    tools = {t: r["status"] for t, r in dev["sanitizer"].items()}
+    say(f"phase 31 check_native: host half {host['status']} "
+        f"({host['process_s']:.3f} s, beside phases 28-29); device half "
+        f"{seconds:.3f} s; compute-sanitizer {json.dumps(tools)}; guarded "
+        f"cases {json.dumps(dev['guarded_cases'])}")
+    if dev["unchecked"]:
+        say(f"phase 31 NOT SHOWN: zero errors from compute-sanitizer's "
+            f"{', '.join(dev['unchecked'])} on K1 and K2; the tool cannot "
+            f"attach to this card, so only the guard checks ran")
+    return {"host": host, "device": dev, "device_s": seconds}
+
+
+def sanitizer_entry(native: dict, kernel: str) -> dict:
+    """The kernels line's ``sanitizer`` of one kernel: each
+    compute-sanitizer tool's status, whether all four showed zero errors
+    (``zero_errors_shown``), and the guarded cases' counts."""
+    dev = native["device"]
+    tools = {t: r["status"] for t, r in dev["sanitizer"].items()}
+    return {**tools, "zero_errors_shown": all(
+        v == "0 errors" for v in tools.values()),
+        "guarded": dev["guarded_cases"][kernel]}
+
+
+def timed(label, fn, *args):
+    """``fn(*args)``, then a line with the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"phase {label} seconds: {time.perf_counter() - t0:.3f}")
+    return out
+
+
 def mesh_main(device, smi_lines) -> int:
     """``chip_smoke.py --mesh``: the local-mesh route on every card of the
     machine, against what it must equal, and nothing else: the router's
@@ -2656,41 +2895,55 @@ def main() -> int:
     device = torch.device("cuda")
     if sys.argv[1:] == ["--mesh"]:
         return mesh_main(device, smi.stdout.strip().splitlines())
-    sweeps, tables = sweep_phase(device, card_info)
-    calibration_phase(device, tables)
-    e2e = end_to_end_phase(1_000_000)
+    sweeps, tables = timed(3, sweep_phase, device, card_info)
+    timed(13, calibration_phase, device, tables)
+    e2e = timed(4, end_to_end_phase, 1_000_000)
     if e2e["launches"] < 1:
         raise SmokeFailure(f"phase 4: the default route ({e2e['engine']}) "
                            f"launched no tile sweep")
     # Phase 20 runs this early: the longer the process has run, the more
     # of K2's kernels its torch.profiler trace loses (PERF.md).
-    mesh_labels = mesh_labels_phase(e2e, device, card_info)
+    mesh_labels = timed(20, mesh_labels_phase, e2e, device, card_info)
     uniq_1m = tables["bucketed_1M_reads"]
-    ring_err = ring_step_phase(device, uniq_1m, tables["dense_L33_m2"])
-    ids_phase(device, uniq_1m, card_info)
+    ring_err = timed(5, ring_step_phase, device, uniq_1m,
+                     tables["dense_L33_m2"])
+    timed(6, ids_phase, device, uniq_1m, card_info)
     table_65k = sample_table(400_000, seed=7)[:65536]
-    ring_schedule_phase(device, table_65k)
-    ring = ring_main_shape_phase(device, uniq_1m, card_info)
-    mesh_launches = mesh_end_to_end_phase(e2e)
-    edit_dp_phase(device)
+    timed(7, ring_schedule_phase, device, table_65k)
+    ring = timed(8, ring_main_shape_phase, device, uniq_1m, card_info)
+    mesh_launches = timed(9, mesh_end_to_end_phase, e2e)
+    timed(10, edit_dp_phase, device)
     table_indels = with_indels(tables["dense_L33_m2"], 33, 8192, seed=1)
-    edit_engines_phase(device, table_indels,
-                       with_indels(table_65k, 24, 65536, seed=2), uniq_1m,
-                       card_info)
-    edit_end_to_end_phase(e2e)
-    edit_indel_end_to_end_phase(e2e, table_indels)
-    _, runs_pairs = engines_agree_phase(device, tables)
-    programs_phase(device, card_info)
-    routes = routes_phase(e2e)
-    mp_1m = mp_1m_phase(e2e, device)
-    mp_big = mp_big_runs_phase()
-    mp_edit_gz = mp_edit_gz_phase(e2e)
-    startup_phase()
-    directional = directional_device_phase(e2e, device, card_info)
-    profile_phase(e2e, device)
-    ext = host_extensions_phase(e2e)
-    mesh = mesh_search_phase(device, tables, runs_pairs)
-    bench_k1 = bench_phase(ext, card)
+    timed(11, edit_engines_phase, device, table_indels,
+          with_indels(table_65k, 24, 65536, seed=2), uniq_1m, card_info)
+    timed(12, edit_end_to_end_phase, e2e)
+    timed(12, edit_indel_end_to_end_phase, e2e, table_indels)
+    _, runs_pairs = timed(14, engines_agree_phase, device, tables)
+    timed(15, programs_phase, device, card_info)
+    routes = timed(16, routes_phase, e2e)
+    mp_1m = timed(17, mp_1m_phase, e2e, device)
+    mp_big = timed(18, mp_big_runs_phase)
+    mp_edit_gz = timed(19, mp_edit_gz_phase, e2e)
+    timed(21, startup_phase)
+    directional = timed(22, directional_device_phase, e2e, device,
+                        card_info)
+    timed(23, profile_phase, e2e, device)
+    ext = timed(24, host_extensions_phase, e2e)
+    mesh = timed(25, mesh_search_phase, device, tables, runs_pairs)
+    bench_k1 = timed(27, bench_phase, ext, card)
+    # Phase 31's host half (CPU only) runs beside the two fuzz campaigns,
+    # which are checks, not timings; it ends before phase 30 times the
+    # engines, and the device half runs after those timings.
+    host = check_native_start()
+    try:
+        fuzz = timed(28, fuzz_oracle_phase)
+        timed(29, fuzz_multiproc_phase)
+    except BaseException:
+        _stop_group(host[0])
+        raise
+    host = timed("31 (host half)", check_native_wait, host)
+    timed(30, engine_xover_phase, device, card)
+    native = timed(31, check_native_phase, host)
 
     main_shape = sweeps["dense_1M"]
     no_library = None  # no single PyTorch call computes either sweep
@@ -2698,10 +2951,11 @@ def main() -> int:
         "name": "hamming_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/hamming_sweep.cu",
         "replaces": "humid_tpu/ops/pallas_hamming.py:60",
-        # This slice's path: bench_1M run in process (phase 27); the
+        # This slice's path: the fuzz_oracle campaign (phase 28); the
         # earlier paths' counts beside it.
-        "launches": bench_k1,
+        "launches": fuzz["launches"]["hamming_sweep"],
         "launches_by_path": {
+            "fuzz_oracle": fuzz["launches"]["hamming_sweep"],
             "auto_e2e_1M": e2e["launches"],
             "mesh_bucketed_sweep_1M": mesh["bucketed_1M_reads"]["launches"],
             "directional_1M_pairs": directional["k1"],
@@ -2724,14 +2978,17 @@ def main() -> int:
         "roofline_ms": main_shape["roofline_ms"],
         "roofline_by": main_shape["roofline_by"],
         "roofline_form": main_shape["roofline_form"],
-        "library_ms": no_library}, {
+        "library_ms": no_library,
+        "sanitizer": sanitizer_entry(native, "hamming_sweep")}, {
         "name": "ring_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/ring_sweep.cu",
         "replaces": "humid_tpu/parallel/pallas_ring.py:75",
-        # This slice's path: dedup_step on 4 shards (phase 20); the ring
-        # route end to end (phase 9) beside it.
-        "launches": mesh_labels["k2_launches"],
-        "launches_by_path": {"mesh_labels_dedup_step":
+        # This slice's path: the fuzz_oracle campaign (phase 28); dedup_step
+        # on 4 shards (phase 20) and the ring route end to end (phase 9)
+        # beside it.
+        "launches": fuzz["launches"]["ring_sweep"],
+        "launches_by_path": {"fuzz_oracle": fuzz["launches"]["ring_sweep"],
+                             "mesh_labels_dedup_step":
                              mesh_labels["k2_launches"],
                              "ring_e2e_1M": mesh_launches["ring"]},
         "max_abs_err": max(ring_err, ring["max_abs_err"]),
@@ -2741,7 +2998,8 @@ def main() -> int:
         "roofline_ms": ring["roofline_ms"],
         "roofline_by": ring["roofline_by"],
         "roofline_form": ring["roofline_form"],
-        "library_ms": no_library}]}))
+        "library_ms": no_library,
+        "sanitizer": sanitizer_entry(native, "ring_sweep")}]}))
     say(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

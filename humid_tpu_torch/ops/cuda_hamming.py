@@ -220,7 +220,9 @@ def _sweep_chunk(lanes, pairs, outs, **kw) -> None:
             _sweep_chunk(lanes, pairs[half:], outs, **kw)
             return
         keys, n = _sweep(lanes, pairs, n, **kw)
-    outs.append(keys[:n])
+    # A slice would keep the whole buffer (CAP_START keys) alive: 2^23
+    # uniques make 2,049 chunks, 128 GiB of buffers.
+    outs.append(keys[:n].clone() if n < len(keys) else keys)
 
 
 def hamming_tile_pairs(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
