@@ -172,11 +172,15 @@ Phases, each printing its own line; any failure exits non-zero:
     outputs equal to phase 4's.
 24. Host extensions built: humid_tpu_torch/, csrc/ and setup.py copied to
     build/chip_smoke/ext_tree/ and ``setup.py build_ext --inplace`` run
-    there; the phase-4 file by two subprocesses from that copy (their own
-    calibration file): the default route and HUMID_TPU_TORCH_CLUSTER=device,
-    each byte-identical to baseline/humid_ref; phase seconds printed.
-    Without a compiler or Python headers the phase says so on its own line
-    and the run goes on.
+    there by the first compiler pair that links -fopenmp
+    (``check_native.openmp_toolchain``, passed as CC and CXX; the line
+    says ``openmp: true``, or why no pair could and the copy is built
+    without it); the phase-4 file by two subprocesses from that copy
+    (their own calibration file): the default route and
+    HUMID_TPU_TORCH_CLUSTER=device, each byte-identical to
+    baseline/humid_ref; phase seconds printed.  Without a compiler or
+    Python headers the phase says so on its own line and the run goes
+    on.
 25. The bucketed mesh search on 4 shards over every card (one card: the
     4 shards round-robin on it, and a line says that no overlap can be
     shown there), every shard enqueued before any read, at sweep_1M and
@@ -186,15 +190,20 @@ Phases, each printing its own line; any failure exits non-zero:
     overlapped (``--mesh`` fails, after its other checks, unless two
     cards' kernels overlapped at sweep_10M).
 26. One JSON line describing both kernels: ``launches`` on this slice's
-    path (the fuzz_oracle campaign, phase 28), each earlier path's in
-    ``launches_by_path``;
+    path (phase 32's e2e_1M runs: HUMID_TPU_TORCH_IMPL=pallas for the tile
+    sweep, ``strategy="sharded", impl="pallas_ring"`` for the ring), each
+    earlier path's in ``launches_by_path``;
     ``ms``, the kernel alone (phase 3's ``kernel_ms`` at ``dense_1M``,
     the main path's shape, for the tile sweep; phase 8's one step for the
     ring);
     ``wrapper_ms``, the same call through its wrapper; ``plain_ms``; the
     POPC form's bound for the same work and the card's roofline
-    (``roofline_ms``, ``roofline_by``, ``roofline_form``).  The edit path
-    launches neither kernel and adds none.  ``sanitizer``: phase 31's
+    (``roofline_ms``, ``roofline_by``, ``roofline_form``); ``library_ms``,
+    ``library_form`` and ``library_matmul_ms``: the same function by the
+    one-hot matrix-product route (the reference's ``impl="mxu"``, bf16
+    products as the port takes it on a card; phase 32, at dense_1M and at
+    the ring's one step).  The edit
+    path launches neither kernel and adds none.  ``sanitizer``: phase 31's
     result for the kernel.  Then the card's nvidia-smi line and the
     result line ``{"ok": true, "device": {...}}``.  Every phase's seconds
     are printed after it ("phase N seconds").
@@ -239,8 +248,31 @@ Phases, each printing its own line; any failure exits non-zero:
     then with guard rows and sentinel words on the card.  Any error found
     fails the phase.  Where the tool cannot attach to the card, a line
     says "NOT SHOWN": zero errors under those tools is not shown, and
-    only the guard checks ran.  The kernels line gives each kernel's
-    ``sanitizer`` statuses, ``zero_errors_shown`` and guarded cases.
+    only the guard checks ran.  Then the stand-in for racecheck: every
+    case launched 20 times with the first capacity forced to 16 pairs
+    (each call overflows and relaunches), each result bit for bit equal
+    to the first and to the plain version.  The kernels line gives each
+    kernel's ``sanitizer`` statuses, ``zero_errors_shown``, guarded cases
+    and repeat cases.
+32. The ``impl=`` choice: the one-hot matrix-product route
+    (``ops/hamming.py::onehot_tile_pairs``, bf16 products) against K1 and
+    the plain version at dense_1M and sweep_1M, and ``hamming_block_mxu``
+    against K2 and its plain version at ring_1M_d4's one step (tolerance
+    0); the route whole (CUDA-event means after a warm-up, and its device
+    busy time from ``torch.profiler``) and its products alone, in bf16 and
+    again as int8 ``torch._int_mm`` for comparison.  Then e2e_1M through
+    ``run()`` with HUMID_TPU_TORCH_IMPL=pallas (K1 must launch),
+    ``neighbor_opts={"impl": "mxu"}`` (no K1) and ``{"strategy":
+    "sharded", "impl": "pallas_ring"}`` on 4 shards (K2 must launch), each
+    byte-identical to baseline/humid_ref and recording its impl.
+33. The two opt-in host routes on phase 24's tree: the overlapped pass 1
+    + unique route (HUMID_TPU_TORCH_OVERLAP_UNIQUE=1) and the
+    component-parallel walk (HUMID_TPU_TORCH_CLUSTER=parallel), each
+    alone, then the default, three rounds, in one subprocess each for
+    e2e_1M (phase 4's flags) and bench_1M (bench.py's); each route must
+    engage, and every output equals baseline/humid_ref's; best of 3 of
+    the read + unique seconds and the clustering seconds beside the
+    default's.
 
 ``python3 chip_smoke.py --mesh`` (for a machine with several cards)
 runs only the mesh route and what it is held against: phases 13 and 14,
@@ -2383,12 +2415,13 @@ def _ext_toolchain_missing() -> str | None:
     return None
 
 
-def _build_ext(tree: str) -> subprocess.CompletedProcess:
+def _build_ext(tree: str, env: dict | None = None
+               ) -> subprocess.CompletedProcess:
     # Serial: the two packages' extensions compile the same sources to the
     # same object files, which a parallel build (-j) writes concurrently.
     return subprocess.run(
         [sys.executable, "setup.py", "build_ext", "--inplace", "--force"],
-        cwd=tree, capture_output=True, text=True)
+        cwd=tree, capture_output=True, text=True, env=env)
 
 
 def host_extensions_phase(e2e: dict, device: str = "cuda") -> dict | None:
@@ -2397,9 +2430,14 @@ def host_extensions_phase(e2e: dict, device: str = "cuda") -> dict | None:
     then the phase-4 file by two subprocesses from that copy (its own
     calibration file): the default route and HUMID_TPU_TORCH_CLUSTER=device;
     each byte-identical to baseline/humid_ref (phase 4's outputs without it).
-    A compiler that cannot link OpenMP builds the copy without it (said
-    on its own line).  Without a compiler or Python headers the phase
-    says so and returns None; any other failure fails the run."""
+    The build takes the first compiler pair that links -fopenmp
+    (``check_native.openmp_toolchain``: $CC/$CXX, the path's, then
+    /usr/bin's), passed to setup.py as CC and CXX; only where no pair can
+    link it is the copy built without OpenMP (said on its own line, with
+    the reason).  Without a compiler or Python headers the phase says so
+    and returns None; any other failure fails the run."""
+    from humid_tpu_torch.tools.check_native import openmp_toolchain
+
     why = _ext_toolchain_missing()
     if why:
         say(f"phase 24 host extensions: not built, {why}")
@@ -2418,19 +2456,22 @@ def host_extensions_phase(e2e: dict, device: str = "cuda") -> dict | None:
     for d in ("cluster", "io"):
         os.makedirs(os.path.join(tree, "humid_tpu", d))
     t0 = time.perf_counter()
-    proc = _build_ext(tree)
-    openmp = True
-    if proc.returncode and "libgomp" in proc.stdout + proc.stderr:
-        # A compiler without its OpenMP runtime: the sources build without
+    pair = openmp_toolchain()
+    openmp = pair is not None
+    if pair is None:
+        # No compiler with its OpenMP runtime: the sources build without
         # OpenMP (every OpenMP use is guarded), their loops then serial.
-        say("phase 24 host extensions: the compiler cannot link -fopenmp "
-            "(no libgomp); building the copy without OpenMP")
-        openmp = False
+        say("phase 24 host extensions: openmp: false; no compiler pair "
+            "($CC/$CXX, gcc/g++ on the path, /usr/bin) links -fopenmp; "
+            "building the copy without OpenMP")
         with open(os.path.join(tree, "setup.py")) as f:
             recipe = f.read()
         with open(os.path.join(tree, "setup.py"), "w") as f:
             f.write(re.sub(r',?\s*"-fopenmp"', "", recipe))
         proc = _build_ext(tree)
+    else:
+        proc = _build_ext(tree, dict(os.environ, CC=pair["cc"],
+                                     CXX=pair["cxx"]))
     build_s = time.perf_counter() - t0
     if proc.returncode:
         raise SmokeFailure(f"phase 24: setup.py build_ext failed:\n"
@@ -2438,7 +2479,8 @@ def host_extensions_phase(e2e: dict, device: str = "cuda") -> dict | None:
     env = dict(os.environ, PYTHONPATH=tree, HUMID_TPU_TORCH_DEVICE=device,
                HUMID_TPU_TORCH_CALIB_PATH=os.path.join(tree, "calib.json"))
     env.pop("HUMID_TPU_TORCH_CLUSTER", None)
-    out = {"build_s": build_s, "openmp": openmp, "tree": tree, "env": env}
+    out = {"build_s": build_s, "openmp": openmp, "compiler": pair,
+           "tree": tree, "env": env}
     for name, extra in (("default", {}),
                         ("cluster_device", {"HUMID_TPU_TORCH_CLUSTER":
                                             "device"})):
@@ -2462,9 +2504,9 @@ def host_extensions_phase(e2e: dict, device: str = "cuda") -> dict | None:
         _same_files(e2e["outs"][-1], dest)
         out[name] = rec
         say(f"phase 24 {name}: {json.dumps(rec)}")
-    say(f"phase 24 host extensions: built in {build_s:.3f} s "
-        f"({'with' if openmp else 'without'} OpenMP); both routes "
-        f"byte-identical to "
+    say(f"phase 24 host extensions: built in {build_s:.3f} s, openmp: "
+        f"{json.dumps(openmp)} (compiler pair {json.dumps(pair)}); both "
+        f"routes byte-identical to "
         + ("baseline/humid_ref" if e2e["humid_ref"] else "phase 4's outputs"))
     return out
 
@@ -2528,7 +2570,8 @@ def bench_phase(ext: dict | None, card: str, device: str = "cuda") -> int:
         # Compared now: the next run overwrites both directories.
         _same_files(os.path.join(bench_dir, "out"),
                     os.path.join(bench_dir, "out_ref"))
-        say(f"phase 27 {name} ({seconds:.3f} s in all; {card}):")
+        say(f"phase 27 {name} ({seconds:.3f} s in all; {card}): "
+            + json.dumps({"openmp": ext["openmp"] if built else None}))
         say(line)
         for note in proc.stderr.strip().splitlines():
             if note.startswith("#"):
@@ -2735,7 +2778,8 @@ def check_native_phase(host: dict) -> dict:
     say(f"phase 31 check_native: host half {host['status']} "
         f"({host['process_s']:.3f} s, beside phases 28-29); device half "
         f"{seconds:.3f} s; compute-sanitizer {json.dumps(tools)}; guarded "
-        f"cases {json.dumps(dev['guarded_cases'])}")
+        f"cases {json.dumps(dev['guarded_cases'])}; repeat cases (the "
+        f"stand-in for racecheck) {json.dumps(dev['repeat_cases'])}")
     if dev["unchecked"]:
         say(f"phase 31 NOT SHOWN: zero errors from compute-sanitizer's "
             f"{', '.join(dev['unchecked'])} on K1 and K2; the tool cannot "
@@ -2751,7 +2795,9 @@ def sanitizer_entry(native: dict, kernel: str) -> dict:
     tools = {t: r["status"] for t, r in dev["sanitizer"].items()}
     return {**tools, "zero_errors_shown": all(
         v == "0 errors" for v in tools.values()),
-        "guarded": dev["guarded_cases"][kernel]}
+        "guarded": dev["guarded_cases"][kernel],
+        "repeats": {**dev["repeat_cases"][kernel],
+                    "per_case": dev["repeat_cases"]["repeats"]}}
 
 
 def timed(label, fn, *args):
@@ -2831,6 +2877,286 @@ def mesh_main(device, smi_lines) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def onehot_products_ms(blocks) -> dict:
+    """The one-hot route's matrix products alone, over the operands it
+    multiplies (``blocks``: (first row, rows, column indices, columns)
+    encodings from ``ops/hamming.py::onehot_tile_blocks``), CUDA-event
+    means after a warm-up: ``bf16_ms`` as the route computes them
+    (``onehot_products``), and ``int8_ms`` as ``torch._int_mm`` with int32
+    sums over the same bands (the form the roofline counts; the route does
+    not take it), its operands converted and padded beforehand (the
+    call's shape rules)."""
+    import torch
+
+    from humid_tpu_torch.ops import hamming as H
+
+    def bf16():
+        for _, a, _, b in blocks:
+            for _ in H.onehot_products(a, b):
+                pass  # each product dropped at once, as the route does
+
+    int8 = [(H.pad_rows(band.to(torch.int8)), b8) for _, a, _, b in blocks
+            for b8 in [H.pad_rows(b.to(torch.int8))]
+            for _, band in H.onehot_bands(a, b8)]
+
+    def int8_products():
+        for a8, b8 in int8:
+            torch._int_mm(a8, b8.t())
+
+    out = {"products": len(int8), "bf16_ms": time_cuda(bf16, 3),
+           "int8_ms": time_cuda(int8_products, 3)}
+    del int8
+    torch.cuda.empty_cache()
+    return out
+
+
+def onehot_sweep_case(name, rows, tile_pairs, *, tile, u_pad, u, device,
+                      k1: dict | None, with_plain: bool) -> dict:
+    """One sweep shape of phase 32: K1 (the wrapper) against the one-hot
+    route (bf16 products on the card), and against the plain version,
+    tolerance 0; the route whole timed, its device busy time from
+    ``torch.profiler`` (``busy_ms``: the union of its kernels' intervals),
+    and its products alone (:func:`onehot_products_ms`); K1's times beside
+    them from phase 3 (``k1``) or measured here."""
+    import torch
+
+    from humid_tpu_torch.ops import cuda_hamming as K
+    from humid_tpu_torch.ops import hamming as H
+    from humid_tpu_torch.ops.neighbors import sweep_tensors
+
+    lanes, tp = sweep_tensors(rows, tile_pairs, device)
+    kw = dict(tile=tile, part_stride=u_pad, part_valid=u, max_dist=1)
+    want = K.hamming_tile_pairs(lanes, tp, **kw)
+    if with_plain:
+        _equal_pairs(f"phase 32 {name}: K1 vs plain", want,
+                     K.hamming_tile_pairs_plain(lanes, tp, **kw))
+    out = {"pairs": int(len(want[0])), "tile_pairs": int(len(tp)),
+           "plain_compared": with_plain,
+           "k1_kernel_ms": k1["kernel_ms"] if k1 else sweep_kernel_ms(
+               lanes, tp, kw, len(want[0]), 20),
+           "k1_wrapper_ms": k1["ms"] if k1 else time_cuda(
+               lambda: K.hamming_tile_pairs(lanes, tp, **kw), 5)}
+    route = lambda: H.onehot_tile_pairs(lanes, tp, word_length=24, **kw)
+    _equal_pairs(f"phase 32 {name}: one-hot vs K1", route(), want)
+    out["route_ms"] = time_cuda(route, 3)
+    trace = kernels_launched(route, f"onehot_{name}")
+    out.update(route_kernels=trace["kernels"], route_busy_ms=trace["busy_ms"],
+               route_busy_share=trace["busy_ms"] / out["route_ms"])
+    oh = H.onehot_bases(lanes, 24, dtype=H.onehot_dtype(lanes.device))
+    blocks = list(H.onehot_tile_blocks(oh, tile_pairs, tile))
+    out["matmul"] = onehot_products_ms(blocks)
+    del blocks, oh
+    torch.cuda.empty_cache()
+    say(f"phase 32 {name}: one-hot route == K1"
+        f"{' == plain' if with_plain else ''} (tolerance 0); "
+        f"{json.dumps(out)}")
+    return out
+
+
+def onehot_phase(device, tables, sweeps, e2e) -> dict:
+    """Phase 32: the neighbour engines' ``impl=`` choice.  The one-hot
+    matrix-product route (the reference's ``impl="mxu"``) against K1 at
+    dense_1M and sweep_1M and against K2 at ring_1M_d4's one step, pairs
+    equal with tolerance 0, the plain version too where it is cheap; the
+    route whole (its busy time too) and its products alone, CUDA-event
+    means after a warm-up.  Then e2e_1M through ``run()`` with $HUMID_TPU_TORCH_IMPL=
+    pallas (this slice's K1 path: counts reset just before, read just
+    after), ``neighbor_opts={"impl": "mxu"}``, and ``{"strategy":
+    "sharded", "impl": "pallas_ring"}`` (K2's), each byte-identical to
+    phase 4's outputs."""
+    from humid_tpu_torch import parallel as P
+    from humid_tpu_torch.ops import hamming as H
+    from humid_tpu_torch.ops.neighbors import bucketed_inputs, dense_inputs
+    from humid_tpu_torch.parallel import cuda_ring as R
+    from humid_tpu_torch.parallel.mesh import pad_to_shards
+
+    uniq = tables["bucketed_1M_reads"]
+    u = len(uniq)
+    out = {}
+    rows, tps, b, u_pad = dense_inputs(uniq, 2048)
+    out["dense_1M"] = onehot_sweep_case(
+        "dense_1M", rows, tps, tile=b, u_pad=u_pad, u=u, device=device,
+        k1=sweeps["dense_1M"], with_plain=True)
+    rows, tps, b, u_pad, _ = bucketed_inputs(uniq, 1, 24, 2048)
+    out["sweep_1M"] = onehot_sweep_case(
+        "sweep_1M", rows, tps, tile=b, u_pad=u_pad, u=u, device=device,
+        k1=sweeps["bucketed_1M_reads"], with_plain=True)
+
+    # ring_1M_d4's one step (phase 8's): shard 0's block against block 1.
+    d = 4
+    bs = -(-u // d)
+    lanes = _lanes(pad_to_shards(uniq, d, multiple=1), device)
+    rows_b, cols_b = lanes[:bs], lanes[bs:2 * bs]
+    kw = dict(row_base=0, col_base=bs, u=u, max_dist=1, upper_only=False)
+    want = R.ring_block_pairs(rows_b, cols_b, **kw)
+    _equal_pairs("phase 32 ring step: K2 vs plain", want,
+                 R.ring_block_pairs_plain(rows_b, cols_b, **kw))
+    n = len(want[0])
+    step = {"pairs": n, "block_rows": bs}
+    block = lambda: H.hamming_block_mxu(rows_b, cols_b, 0, bs, 1, n + 1, 24)
+    r_idx, c_idx, count = block()
+    if int(count) != n:
+        raise SmokeFailure(f"phase 32 ring step: one-hot found {int(count)} "
+                           f"pairs, K2 {n}")
+    _equal_pairs("phase 32 ring step: one-hot vs K2",
+                 (r_idx[:n].long(), c_idx[:n].long()), want)
+    step["route_ms"] = time_cuda(block, 3)
+    trace = kernels_launched(block, "onehot_ring_step")
+    step.update(route_kernels=trace["kernels"],
+                route_busy_ms=trace["busy_ms"],
+                route_busy_share=trace["busy_ms"] / step["route_ms"])
+    dtype = H.onehot_dtype(rows_b.device)
+    step["matmul"] = onehot_products_ms([(
+        0, H.onehot_bases(rows_b, 24, dtype=dtype), None,
+        H.onehot_bases(cols_b, 24, dtype=dtype))])
+    say(f"phase 32 ring_1M_d4 one step: one-hot block == K2 == plain "
+        f"(tolerance 0); {json.dumps(step)}")
+    out["ring_step"] = step
+
+    # This slice's path: the impl choice through the user's entry point.
+    runs = {}
+    for name, env, opts in (
+            ("impl_pallas", {"HUMID_TPU_TORCH_IMPL": "pallas"}, None),
+            ("impl_mxu", {}, {"impl": "mxu"}),
+            ("sharded_pallas_ring", {},
+             {"strategy": "sharded", "impl": "pallas_ring",
+              "mesh": P.data_mesh(d, device)})):
+        R.LAUNCHES = 0
+        res, seconds, k1 = _with_env(env, lambda: _run_e2e(
+            e2e, f"impl_{name}", device, neighbor_opts=opts))
+        k2 = R.LAUNCHES
+        engine = res.extra["engine"]
+        _same_files(e2e["outs"][-1], os.path.join(WORK, f"out_impl_{name}"))
+        runs[name] = {"seconds": seconds, "k1": k1, "k2": k2,
+                      "engine": engine,
+                      "neighbours_s": res.extra["timings"][
+                          "Calculating neighbours using Hamming distance"]}
+        say(f"phase 32 e2e_1M {name}: {json.dumps(runs[name])}; outputs == "
+            + ("baseline/humid_ref" if e2e["humid_ref"] else "phase 4's"))
+    wanted = {"impl_pallas": ("pallas", "k1"),
+              "sharded_pallas_ring": ("pallas_ring", "k2")}
+    for name, (impl, kernel) in wanted.items():
+        if (runs[name][kernel] < 1
+                or runs[name]["engine"].get("impl") != impl):
+            raise SmokeFailure(f"phase 32 {name}: {json.dumps(runs[name])}")
+    if runs["impl_mxu"]["k1"] or runs["impl_mxu"]["engine"].get(
+            "impl") != "mxu":
+        raise SmokeFailure(f"phase 32: impl=mxu ran {runs['impl_mxu']}")
+    out["e2e"] = runs
+    return out
+
+
+def library_entry(case: dict) -> dict:
+    """The kernels line's library keys for one kernel: the one-hot route
+    (the reference's ``impl="mxu"``, bf16 products as the port takes them
+    on a card) on the same inputs, and its products alone."""
+    return {"library_ms": case["route_ms"],
+            "library_form": "one-hot bf16 matrix product (torch.matmul), "
+                            "compare, nonzero (impl='mxu')",
+            "library_matmul_ms": case["matmul"]["bf16_ms"]}
+
+
+OPTIN_RUNNER = """
+import json, os, sys, time
+import humid_tpu_torch
+from humid_tpu_torch import _backend
+from humid_tpu_torch.cluster import exact
+fastq, out_root, opts = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+walks = []
+native_cluster = exact._native.cluster
+def cluster(*args, **kw):
+    walks.append(kw.get("parallel"))
+    return native_cluster(*args, **kw)
+exact._native.cluster = cluster
+routes = {"overlap_unique": {"HUMID_TPU_TORCH_OVERLAP_UNIQUE": "1"},
+          "cluster_parallel": {"HUMID_TPU_TORCH_CLUSTER": "parallel"},
+          "default": {}}
+rec = {name: [] for name in routes}
+for _ in range(3):
+    for name, env in routes.items():
+        for var in ("HUMID_TPU_TORCH_OVERLAP_UNIQUE", "HUMID_TPU_TORCH_CLUSTER"):
+            os.environ.pop(var, None)
+        os.environ.update(env)
+        del walks[:]
+        t0 = time.perf_counter()
+        res = humid_tpu_torch.run([fastq], dir_name=os.path.join(out_root, name),
+                                  log_name="/dev/null", **opts)
+        rec[name].append({"seconds": time.perf_counter() - t0,
+                          "timings": res.extra["timings"],
+                          "unique": res.extra["engine"].get("unique"),
+                          "parallel_walk": walks[-1]})
+print("OPTIN " + json.dumps({"runs": rec,
+                             "extensions": _backend._host_extensions()}),
+      flush=True)
+"""
+
+
+def _read_unique_s(timings: dict) -> float:
+    """Seconds of pass 1 and unique counting together: the overlapped
+    route's unique span covers its read."""
+    if "unique counting (overlapped)" in timings:
+        return timings["unique counting (overlapped)"]
+    return timings["Reading data"] + timings.get("unique counting", 0.0)
+
+
+def optin_routes_phase(e2e: dict, ext: dict | None) -> dict | None:
+    """Phase 33: the two opt-in host routes on phase 24's tree (built with
+    OpenMP where a compiler pair can link it): the overlapped pass 1 +
+    unique route ($HUMID_TPU_TORCH_OVERLAP_UNIQUE=1) and the
+    component-parallel walk ($HUMID_TPU_TORCH_CLUSTER=parallel), each
+    alone, then the default, three rounds, in one subprocess per dataset
+    (e2e_1M with phase 4's flags, bench_1M with bench.py's); every output
+    byte-identical to baseline/humid_ref's; best of 3 of the read +
+    unique seconds and the clustering seconds beside the default's."""
+    if ext is None:
+        say("phase 33 opt-in routes: no extension tree (phase 24 could not "
+            "build the host extensions)")
+        return None
+    bench_dir = os.path.join(WORK, "tmp", "humid_tpu_torch_bench")
+    out = {"openmp": ext["openmp"]}
+    for name, fastq, ref, opts in (
+            ("e2e_1M", e2e["fastq"], e2e["outs"][-1],
+             {"word_length": 24, "distance": 1, "run_stats": True,
+              "write_annotated": True}),
+            ("bench_1M", os.path.join(bench_dir,
+                                      f"bench_{BENCH_READS}.fastq"),
+             os.path.join(bench_dir, "out_ref"), {"distance": 1})):
+        dest = os.path.join(WORK, f"optin_{name}")
+        proc = subprocess.run(
+            [sys.executable, "-c", OPTIN_RUNNER, fastq, dest,
+             json.dumps(opts)], cwd=ext["tree"], env=ext["env"],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise SmokeFailure(f"phase 33 {name} failed:\n"
+                               f"{proc.stderr[-4000:]}")
+        rec = json.loads([ln for ln in proc.stdout.splitlines()
+                          if ln.startswith("OPTIN ")][-1][6:])
+        if rec["extensions"] != "111":
+            raise SmokeFailure(f"phase 33 {name}: extensions "
+                               f"{rec['extensions']}")
+        runs = rec["runs"]
+        if {r["unique"] for r in runs["overlap_unique"]} != {"overlapped"}:
+            raise SmokeFailure(f"phase 33 {name}: the overlapped route did "
+                               f"not engage: {runs['overlap_unique']}")
+        if ({r["parallel_walk"] for r in runs["cluster_parallel"]} != {True}
+                or {r["parallel_walk"] for r in runs["default"]} != {False}):
+            raise SmokeFailure(f"phase 33 {name}: walks "
+                               f"{json.dumps(runs)}")
+        for route in runs:
+            _same_files(ref, os.path.join(dest, route))
+        best = {route: {
+            "read_unique_s": min(_read_unique_s(r["timings"]) for r in rr),
+            "clusters_s": min(r["timings"][DIRECTIONAL] for r in rr),
+            "run_s": min(r["seconds"] for r in rr)}
+            for route, rr in runs.items()}
+        out[name] = best
+        say(f"phase 33 {name} (best of 3; OpenMP {ext['openmp']}): "
+            f"{json.dumps(best)}; every route's outputs == "
+            + ("baseline/humid_ref" if name == "bench_1M" or e2e["humid_ref"]
+               else "phase 4's"))
+    return out
 
 
 def _host(x):
@@ -2944,17 +3270,21 @@ def main() -> int:
     host = timed("31 (host half)", check_native_wait, host)
     timed(30, engine_xover_phase, device, card)
     native = timed(31, check_native_phase, host)
+    onehot = timed(32, onehot_phase, device, tables, sweeps, e2e)
+    timed(33, optin_routes_phase, e2e, ext)
 
     main_shape = sweeps["dense_1M"]
-    no_library = None  # no single PyTorch call computes either sweep
+    impl_runs = onehot["e2e"]
     say(json.dumps({"kernels": [{
         "name": "hamming_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/hamming_sweep.cu",
         "replaces": "humid_tpu/ops/pallas_hamming.py:60",
-        # This slice's path: the fuzz_oracle campaign (phase 28); the
-        # earlier paths' counts beside it.
-        "launches": fuzz["launches"]["hamming_sweep"],
+        # This slice's path: e2e_1M through run() with
+        # HUMID_TPU_TORCH_IMPL=pallas (phase 32); the earlier paths'
+        # counts beside it.
+        "launches": impl_runs["impl_pallas"]["k1"],
         "launches_by_path": {
+            "impl_pallas_e2e_1M": impl_runs["impl_pallas"]["k1"],
             "fuzz_oracle": fuzz["launches"]["hamming_sweep"],
             "auto_e2e_1M": e2e["launches"],
             "mesh_bucketed_sweep_1M": mesh["bucketed_1M_reads"]["launches"],
@@ -2978,16 +3308,20 @@ def main() -> int:
         "roofline_ms": main_shape["roofline_ms"],
         "roofline_by": main_shape["roofline_by"],
         "roofline_form": main_shape["roofline_form"],
-        "library_ms": no_library,
+        # The same function by the reference's impl="mxu" route, at
+        # dense_1M (phase 32; sweep_1M's there too).
+        **library_entry(onehot["dense_1M"]),
         "sanitizer": sanitizer_entry(native, "hamming_sweep")}, {
         "name": "ring_sweep", "route": "cuda",
         "source": "humid_tpu_torch/csrc/ring_sweep.cu",
         "replaces": "humid_tpu/parallel/pallas_ring.py:75",
-        # This slice's path: the fuzz_oracle campaign (phase 28); dedup_step
-        # on 4 shards (phase 20) and the ring route end to end (phase 9)
-        # beside it.
-        "launches": fuzz["launches"]["ring_sweep"],
-        "launches_by_path": {"fuzz_oracle": fuzz["launches"]["ring_sweep"],
+        # This slice's path: e2e_1M through run() with strategy "sharded"
+        # and impl "pallas_ring" on 4 shards (phase 32); the earlier
+        # paths' counts beside it.
+        "launches": impl_runs["sharded_pallas_ring"]["k2"],
+        "launches_by_path": {"sharded_pallas_ring_e2e_1M":
+                             impl_runs["sharded_pallas_ring"]["k2"],
+                             "fuzz_oracle": fuzz["launches"]["ring_sweep"],
                              "mesh_labels_dedup_step":
                              mesh_labels["k2_launches"],
                              "ring_e2e_1M": mesh_launches["ring"]},
@@ -2998,7 +3332,7 @@ def main() -> int:
         "roofline_ms": ring["roofline_ms"],
         "roofline_by": ring["roofline_by"],
         "roofline_form": ring["roofline_form"],
-        "library_ms": no_library,
+        **library_entry(onehot["ring_step"]),
         "sanitizer": sanitizer_entry(native, "ring_sweep")}]}))
     say(card)
     print(json.dumps({"ok": True, "device": {

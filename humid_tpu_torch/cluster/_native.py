@@ -13,9 +13,14 @@ import numpy as np
 from . import _ccluster
 
 
-def cluster(counts, indptr, indices, maximum):
+def cluster(counts, indptr, indices, maximum, parallel=False):
     """Native CSR clustering; mirrors the pure-Python version in
-    humid_tpu_torch/cluster/exact.py (semantics of cluster.cc)."""
+    humid_tpu_torch/cluster/exact.py (semantics of cluster.cc).
+
+    ``parallel`` runs the component-parallel variant
+    (``cluster_parallel_into``: union-find the components, the same walk
+    per component under OpenMP, clusters renumbered by seed rank); the
+    output is bit-identical."""
     u = len(counts)
     labels = np.zeros(u, dtype=np.int64)
     cap = max(u, 1)
@@ -24,10 +29,10 @@ def cluster(counts, indptr, indices, maximum):
     size = np.empty(cap, dtype=np.int64)
     k = 0
     if u:
-        k = _ccluster.cluster_into(
-            counts, indptr, indices, bool(maximum),
-            labels, max_leaf, max_count, size,
-        )
+        fn = (_ccluster.cluster_parallel_into if parallel
+              else _ccluster.cluster_into)
+        k = fn(counts, indptr, indices, bool(maximum),
+               labels, max_leaf, max_count, size)
     return labels, max_leaf[:k].copy(), max_count[:k].copy(), size[:k].copy()
 
 

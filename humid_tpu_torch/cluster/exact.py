@@ -25,6 +25,7 @@ test oracle for the native one.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,6 +51,17 @@ class ClusterResult:
         return len(self.size)
 
 
+#: $HUMID_TPU_TORCH_CLUSTER: "parallel" or "seq" set ``parallel=None`` of
+#: :func:`cluster_exact` ("device" is read by ``pipeline.cluster_dispatch``).
+CLUSTER_ENV_VAR = "HUMID_TPU_TORCH_CLUSTER"
+#: ``parallel=None`` without the variable: never parallel.  The
+#: reference's measurement (its ``_PARALLEL_AUTO``) found the
+#: component-parallel walk's fixed cost growing with the table on every
+#: core count; on an H100's host built with OpenMP, ``chip_smoke.py``
+#: phase 33 times it against the sequential walk (PERF.md).
+PARALLEL_AUTO = False
+
+
 def cluster_exact(
     counts: np.ndarray,
     indptr: np.ndarray,
@@ -57,15 +69,30 @@ def cluster_exact(
     *,
     maximum: bool = False,
     use_native: bool = True,
+    parallel: bool | None = None,
 ) -> ClusterResult:
     """Cluster unique words given exact-duplicate ``counts`` and CSR
-    adjacency (ascending neighbour lists)."""
+    adjacency (ascending neighbour lists).
+
+    With the native extension, ``parallel=True`` (or, for None,
+    $HUMID_TPU_TORCH_CLUSTER=parallel) takes the component-parallel walk:
+    clusters in distinct connected components cannot interact, so they
+    are walked concurrently and renumbered by seed rank; the output is
+    bit-identical.  ``parallel=False`` (or "seq") and the default take the
+    sequential walk (:data:`PARALLEL_AUTO`).  Without the extension the
+    Python walk runs either way."""
     counts = np.ascontiguousarray(counts, dtype=np.int64)
     indptr = np.ascontiguousarray(indptr, dtype=np.int64)
     indices = np.ascontiguousarray(indices, dtype=np.int64)
     if use_native and _native is not None:
+        if parallel is None:
+            env = os.environ.get(CLUSTER_ENV_VAR, "auto")
+            parallel = (True if env == "parallel"
+                        else False if env in ("seq", "sequential")
+                        else PARALLEL_AUTO)
         return ClusterResult(*_native.cluster(counts, indptr, indices,
-                                              bool(maximum)))
+                                              bool(maximum),
+                                              parallel=bool(parallel)))
     if maximum:
         return _cluster_max_py(counts, indptr, indices)
     return _cluster_directional_py(counts, indptr, indices)

@@ -125,6 +125,15 @@ class FastqBatch:
         return FastqBatch(self.buf, self.starts[s:e], self.ends[s:e],
                           None if self.prefix is None else self.prefix[s:e])
 
+    def line_bytes(self, i: int, line: int) -> bytes:
+        """Line ``line`` (0-3) of record ``i``, without its newline."""
+        return self.buf[self.starts[i, line]:self.ends[i, line]].tobytes()
+
+    def record_bytes(self, i: int) -> bytes:
+        """Record ``i`` as its canonical 4-line bytes (what the writers
+        emit for it)."""
+        return b"\n".join(self.line_bytes(i, j) for j in range(4)) + b"\n"
+
 
 def _frame(buf: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
     """Find complete 4-line records in ``buf``.  Returns (starts, ends,
@@ -322,6 +331,10 @@ class FastqReader:
             return None
         finally:
             f.close()
+
+    def records(self) -> Iterator[FastqBatch]:
+        """The file's records, batch by batch (:meth:`batches`)."""
+        return self.batches()
 
     def batches(self) -> Iterator[FastqBatch]:
         if (self.frame_workers > 1 and _scan_frames_native is not None

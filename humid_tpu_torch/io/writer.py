@@ -170,6 +170,22 @@ class FastqWriter:
             self._f.write(out.data)
         self._wrote = True
 
+    def write_records(self, batch: FastqBatch, indices: np.ndarray) -> None:
+        """Write the records ``indices`` of ``batch``, in that order."""
+        self.write_array(build_records(batch, indices))
+
+    def write_records_annotated(self, batch: FastqBatch,
+                                cluster_ids: np.ndarray) -> None:
+        """Write every record of ``batch`` with ``:<cluster_id>`` appended
+        to its name line (humid.cc:280-284)."""
+        self.write_array(build_records_annotated(batch, cluster_ids))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
     def close(self) -> None:
         if self.is_gz and not self._wrote:
             # An empty gzip file must still be a valid (empty) member.

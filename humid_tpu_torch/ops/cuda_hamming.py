@@ -207,17 +207,19 @@ def _sweep(lanes, pairs, cap, **kw):
     return keys, n
 
 
-def _sweep_chunk(lanes, pairs, outs, **kw) -> None:
-    """Sweep one chunk of tile pairs, appending its keys to ``outs``:
-    relaunch once with the exact capacity when the buffer overflowed, or
-    split the chunk when that capacity would exceed MAX_CAP."""
-    cap = min(CAP_START, len(pairs) * kw["tile"] ** 2)
+def _sweep_chunk(lanes, pairs, outs, cap_start, **kw) -> None:
+    """Sweep one chunk of tile pairs into a buffer of ``cap_start`` keys
+    (fewer where the chunk cannot fill it), appending its keys to
+    ``outs``: relaunch once with the exact capacity when the buffer
+    overflowed, or split the chunk when that capacity would exceed
+    MAX_CAP."""
+    cap = max(1, min(cap_start, len(pairs) * kw["tile"] ** 2))
     keys, n = _sweep(lanes, pairs, cap, **kw)
     if n > cap:
         if n > MAX_CAP and len(pairs) > 1:
             half = len(pairs) // 2
-            _sweep_chunk(lanes, pairs[:half], outs, **kw)
-            _sweep_chunk(lanes, pairs[half:], outs, **kw)
+            _sweep_chunk(lanes, pairs[:half], outs, cap_start, **kw)
+            _sweep_chunk(lanes, pairs[half:], outs, cap_start, **kw)
             return
         keys, n = _sweep(lanes, pairs, n, **kw)
     # A slice would keep the whole buffer (CAP_START keys) alive: 2^23
@@ -227,17 +229,22 @@ def _sweep_chunk(lanes, pairs, outs, **kw) -> None:
 
 def hamming_tile_pairs(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
                        tile: int, part_stride: int, part_valid: int,
-                       max_dist: int, ids: torch.Tensor | None = None):
+                       max_dist: int, ids: torch.Tensor | None = None,
+                       cap_start: int | None = None):
     """All matching (a, b) of the tile-pair list (module docstring),
     int64, sorted by (a, b).  CUDA tensors run the hand-written kernel
-    (``csrc/hamming_sweep.cu``) in chunks of CHUNK_PAIRS tile pairs; CPU
-    tensors run :func:`hamming_tile_pairs_plain`."""
+    (``csrc/hamming_sweep.cu``) in chunks of CHUNK_PAIRS tile pairs, each
+    launch into a key buffer of ``cap_start`` pairs at first (default
+    CAP_START; an overflow costs one relaunch, never a pair); CPU tensors
+    run :func:`hamming_tile_pairs_plain` through the same buffers."""
     _check(lanes, tile_pairs, tile, part_stride, part_valid, max_dist, ids)
     kw = dict(tile=tile, part_stride=part_stride, part_valid=part_valid,
               max_dist=max_dist, ids=ids)
+    cap_start = CAP_START if cap_start is None else int(cap_start)
     outs: list = []
     for lo in range(0, len(tile_pairs), CHUNK_PAIRS):
-        _sweep_chunk(lanes, tile_pairs[lo:lo + CHUNK_PAIRS], outs, **kw)
+        _sweep_chunk(lanes, tile_pairs[lo:lo + CHUNK_PAIRS], outs,
+                     cap_start, **kw)
     if not outs:
         empty = torch.zeros(0, dtype=torch.int64, device=lanes.device)
         return empty, empty.clone()

@@ -295,7 +295,8 @@ class FusedPipeline:
                  want_inverse: bool, want_labels: bool = False,
                  d_cap: int = 8, run_cap: int = 2048, tile: int = 2048,
                  shard: tuple[int, int] | None = None,
-                 owned: np.ndarray | None = None):
+                 owned: np.ndarray | None = None,
+                 impl: str | None = None, cap_total: int | None = None):
         self.feeder = feeder
         self.device = feeder.device
         self.w = feeder.w
@@ -311,6 +312,9 @@ class FusedPipeline:
         # partition and table row, whether it owns the row's run.
         self.shard = shard
         self.owned = owned
+        # The big-run and giant-run tile sweeps' implementation and first
+        # capacity (:func:`.neighbors.sweep`).
+        self.sweep_opts = dict(impl=impl, cap_total=cap_total)
         self.k = 0
         self.uniq: np.ndarray | None = None
         self._matches = None
@@ -425,7 +429,8 @@ class FusedPipeline:
             return find_neighbor_pairs(self.table(), self.max_dist,
                                        word_length=self.word_length,
                                        tile=self.tile, strategy="dense",
-                                       device=dev, shard=self.shard)
+                                       device=dev, shard=self.shard,
+                                       **self.sweep_opts)
         # A power of two up to d_cap, grown until the runs longer than
         # d_max + 1 hold under 2% of the table; never below the base.
         d_max = 1
@@ -570,7 +575,9 @@ class FusedPipeline:
                         parts_b.append(np.maximum(ga, gb))
             if big_parts:
                 ba, bb = _big_run_pairs(uniq, big_parts, self.max_dist,
-                                        tile=self.tile, device=dev)
+                                        tile=self.tile, device=dev,
+                                        word_length=self.word_length,
+                                        **self.sweep_opts)
                 parts_a.append(ba)
                 parts_b.append(bb)
                 extra_a.append(ba)

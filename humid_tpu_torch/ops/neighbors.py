@@ -61,8 +61,9 @@ from .. import words as W
 from .._device import resolve_device
 from .._util import avail_bytes, concat_aranges
 from . import edit as E
-from .cuda_hamming import _sorted_pairs, hamming_tile_pairs
-from .hamming import lanes_tensor
+from .cuda_hamming import (_sorted_pairs, hamming_tile_pairs,
+                           hamming_tile_pairs_plain)
+from .hamming import lanes_tensor, onehot_tile_pairs
 from .unique import _stable_argsort_u64, _unique_u64
 
 try:
@@ -73,6 +74,15 @@ except ImportError:  # pragma: no cover - extension not built
     _merge_join_native = _run_pairs_native = _run_pairs_hamming_native = None
 
 STRATEGY_ENV_VAR = "HUMID_TPU_TORCH_STRATEGY"
+#: Replaces ``impl=None`` of :func:`find_neighbor_pairs` (an explicit
+#: argument wins), as the reference's HUMID_TPU_IMPL.
+IMPL_ENV_VAR = "HUMID_TPU_TORCH_IMPL"
+#: The tile sweep's implementations, under the reference's names:
+#: "pallas" (kernel K1 on a card; its plain version on the CPU), "xor"
+#: (the plain XOR/popcount version on any device), "mxu" (one-hot matrix
+#: products, :func:`.hamming.onehot_tile_pairs`), "pallas_ring" (the mesh
+#: searches take the ring, kernel K2; a tile sweep takes K1).
+IMPLS = ("pallas", "xor", "mxu", "pallas_ring")
 
 
 class JoinCapExceeded(ValueError):
@@ -153,6 +163,44 @@ def choose_engine(u: int, max_dist: int, word_length: int | None,
     return "dense"
 
 
+def check_impl(impl: str | None) -> None:
+    if impl is not None and impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
+
+
+def record_impl(info: dict | None, impl: str | None, *,
+                ring: bool = False) -> None:
+    """``info["impl"]``, where an ``impl`` was asked for: the one that
+    produced the pairs.  That is "pallas_ring" where the ring (kernel K2)
+    ran, which no tile-sweep ``impl`` replaces (as in the reference);
+    else the tile sweep's, whose "pallas_ring" is K1 ("pallas")."""
+    if info is None or impl is None:
+        return
+    info["impl"] = ("pallas_ring" if ring
+                    else "pallas" if impl == "pallas_ring" else impl)
+
+
+def sweep(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
+          impl: str | None = None, word_length: int | None = None,
+          cap_total: int | None = None, **kw):
+    """The tile sweep (the contract of
+    :func:`.cuda_hamming.hamming_tile_pairs`; ``kw`` its ``tile``,
+    ``part_stride``, ``part_valid``, ``max_dist``, ``ids``) by ``impl``
+    (:data:`IMPLS`; None is "pallas" on a card and "xor" on the CPU).
+    ``cap_total`` is the first capacity (pairs) of the key buffer of K1's
+    launches and of the one-hot route.  On CPU tensors K1's wrapper runs
+    the plain version (through that buffer), so "xor" and "pallas" are
+    one route there; on a card "xor" is the plain version, which compacts
+    to the exact size."""
+    check_impl(impl)
+    if impl == "mxu":
+        return onehot_tile_pairs(lanes, tile_pairs, word_length=word_length,
+                                 cap_total=cap_total, **kw)
+    if impl == "xor" and lanes.device.type != "cpu":
+        return hamming_tile_pairs_plain(lanes, tile_pairs, **kw)
+    return hamming_tile_pairs(lanes, tile_pairs, cap_start=cap_total, **kw)
+
+
 def sweep_tensors(rows: np.ndarray, tile_pairs: np.ndarray,
                   device: torch.device):
     """Host sweep inputs -> the kernel's tensors on ``device``: [N, w]
@@ -165,15 +213,17 @@ def sweep_tensors(rows: np.ndarray, tile_pairs: np.ndarray,
 
 
 def _tile_sweep(rows, tile_pairs, *, tile, u_pad, u, max_dist, device,
-                ids=None):
+                ids=None, impl=None, word_length=None, cap_total=None):
     """Sweep ``tile_pairs`` over ``rows`` (partitions of ``u_pad`` rows,
     the first ``u`` of each real), with the run-id mask of ``ids`` ([N]
-    int32 numpy) if given; (a, b) int64 numpy, sorted."""
+    int32 numpy) if given, by ``impl`` (:func:`sweep`); (a, b) int64
+    numpy, sorted."""
     lanes, tp = sweep_tensors(rows, tile_pairs, device)
     if ids is not None:
         ids = torch.from_numpy(ids).to(device)
-    a, b = hamming_tile_pairs(lanes, tp, tile=tile, part_stride=u_pad,
-                              part_valid=u, max_dist=max_dist, ids=ids)
+    a, b = sweep(lanes, tp, impl=impl, word_length=word_length,
+                 cap_total=cap_total, tile=tile, part_stride=u_pad,
+                 part_valid=u, max_dist=max_dist, ids=ids)
     return a.cpu().numpy(), b.cpu().numpy()
 
 
@@ -197,6 +247,8 @@ def find_neighbor_pairs(
     metric: str = "hamming",
     word_length: int | None = None,
     tile: int = 2048,
+    cap_total: int | None = None,
+    impl: str | None = None,
     strategy: str = "auto",
     runs_threshold: int = 1 << 11,
     join_cap: int | None = None,
@@ -215,11 +267,22 @@ def find_neighbor_pairs(
         flag; needs ``word_length``).
       word_length: bases per word (needed by every engine but the dense
         Hamming sweep).
+      cap_total: first capacity (pairs) of the tile sweep's key buffer
+        (K1's and the one-hot route's); a sweep with more matches grows
+        it, so the value never changes a result (the reference's first
+        capacity of its retry loop).  Default: K1's ``CAP_START``.
+      impl: the Hamming tile sweep's implementation (:data:`IMPLS`),
+        wherever a strategy sweeps tiles: "pallas" (default on a card:
+        kernel K1), "xor" (default on the CPU: the plain version), "mxu"
+        (one-hot matrix products; needs ``word_length <= 256``) or
+        "pallas_ring" (with "sharded": the ring, kernel K2).
+        $HUMID_TPU_TORCH_IMPL replaces None; an explicit argument wins.
       strategy: "dense"; "bucketed", "runs_device" (Hamming only);
         "runs" (Hamming: the host pigeonhole runs engine; edit: the
         shifted-segment search); "auto" (:func:`choose_engine`); or a
         search over the local device mesh (:mod:`..parallel`): "ring"
-        (the Hamming ring kernel; the reference calls it "pallas_ring"),
+        (the Hamming ring kernel; "pallas_ring", the reference's name,
+        is the same),
         "sharded" (above ``runs_threshold`` with ``max_dist >= 1`` the
         bucketed mesh search, for edit the shifted mesh search; else the
         dense ring of the metric) or "sharded_bucketed" (force the
@@ -236,7 +299,9 @@ def find_neighbor_pairs(
         ``parallel.data_mesh(device=device)``, whose size
         $HUMID_TPU_TORCH_SHARDS sets).
       info: if given, a dict that receives what this call ran: "metric",
-        "strategy" (the engine that produced the pairs), for the mesh
+        "strategy" (the engine that produced the pairs), for Hamming
+        "impl" where one was asked for (:func:`record_impl`: the tile
+        sweep's, or "pallas_ring" where the ring ran), for the mesh
         strategies "shards" (mesh size) and "ring_fallbacks" (1 if a
         forced ring went to the dense sweep because a block exceeded the
         ring's cap, else 0), and for the shifted edit searches
@@ -265,6 +330,12 @@ def find_neighbor_pairs(
     env_strategy = os.environ.get(STRATEGY_ENV_VAR)
     if env_strategy and strategy == "auto":
         strategy = env_strategy
+    env_impl = os.environ.get(IMPL_ENV_VAR)
+    if env_impl and impl is None:
+        impl = env_impl
+    check_impl(impl)
+    if strategy == "pallas_ring":
+        strategy = "ring"
     dev = resolve_device(device)
     auto_chosen = strategy == "auto"
     if auto_chosen:
@@ -289,7 +360,8 @@ def find_neighbor_pairs(
         return _mesh_search(packed, max_dist, strategy, metric=metric,
                             word_length=word_length, tile=tile,
                             runs_threshold=runs_threshold, join_cap=join_cap,
-                            device=dev, mesh=mesh, info=info)
+                            device=dev, mesh=mesh, info=info, impl=impl,
+                            cap_total=cap_total)
     if strategy == "runs" and metric == "edit":
         info["join_cap_fallbacks"] = 0
         try:
@@ -304,22 +376,25 @@ def find_neighbor_pairs(
             # cap is checked before ownership, so every part gets here.)
             info.update(strategy="dense", join_cap_fallbacks=1)
             strategy = "dense"
+    sweep_opts = dict(impl=impl, cap_total=cap_total)
+    if metric == "hamming":
+        record_impl(info, impl)
     if strategy == "bucketed":
         return find_neighbor_pairs_bucketed(
             packed, max_dist, word_length=word_length, tile=tile, device=dev,
-            shard=shard, info=info)
+            shard=shard, info=info, **sweep_opts)
     if strategy in ("runs", "runs_device"):
         if word_length is None:
             raise ValueError(f"{strategy} strategy requires word_length")
         if strategy == "runs":
             return find_neighbor_pairs_runs(
                 packed, max_dist, word_length=word_length, tile=tile,
-                device=dev, info=info, shard=shard)
+                device=dev, info=info, shard=shard, **sweep_opts)
         from .runs_device import runs_device_pairs
 
         return runs_device_pairs(packed, max_dist, word_length=word_length,
                                  tile=tile, device=dev, info=info,
-                                 shard=shard)
+                                 shard=shard, **sweep_opts)
     if strategy != "dense":
         raise ValueError(f"unknown strategy {strategy!r} for the {metric} "
                          f"metric")
@@ -331,7 +406,8 @@ def find_neighbor_pairs(
     if not len(tile_pairs):
         return _empty_pairs()
     return _tile_sweep(rows, tile_pairs, tile=b, u_pad=u_pad, u=u,
-                       max_dist=max_dist, device=dev)
+                       max_dist=max_dist, device=dev, word_length=word_length,
+                       **sweep_opts)
 
 
 def _stripe(tile_pairs: np.ndarray, shard, tile: int, info: dict | None):
@@ -372,8 +448,14 @@ def dense_edit_pairs(packed: np.ndarray, max_dist: int, *, word_length: int,
 
 
 def _mesh_search(packed, max_dist, strategy, *, metric, word_length, tile,
-                 runs_threshold, join_cap, device, mesh, info):
-    """The mesh strategies of :func:`find_neighbor_pairs`."""
+                 runs_threshold, join_cap, device, mesh, info, impl=None,
+                 cap_total=None):
+    """The mesh strategies of :func:`find_neighbor_pairs`.  Under
+    "sharded", ``impl="pallas_ring"`` takes the ring, as the reference's
+    does; any other ``impl`` goes to the bucketed mesh search's sweeps.
+    The ring routes (the ring, the dense ring, the bucketed search's
+    giant-run fallback) sweep no tiles, so there a tile-sweep ``impl``
+    does not apply, as in the reference: ``info["impl"]`` says so."""
     from .. import parallel as P
 
     mesh = mesh or P.data_mesh(device=device)
@@ -404,12 +486,17 @@ def _mesh_search(packed, max_dist, strategy, *, metric, word_length, tile,
         return P.sharded_neighbor_pairs(packed, max_dist, mesh=mesh,
                                         tile=tile, metric="edit",
                                         word_length=word_length)
+    if strategy == "sharded" and impl == "pallas_ring":
+        strategy = info["strategy"] = "ring"
     if strategy == "sharded_bucketed" or (strategy == "sharded"
                                           and segments_apply):
         if word_length is None:
             raise ValueError("sharded_bucketed strategy requires word_length")
+        record_impl(info, impl)
         return P.sharded_neighbor_pairs_bucketed(
-            packed, max_dist, word_length=word_length, mesh=mesh)
+            packed, max_dist, word_length=word_length, mesh=mesh,
+            impl=impl, cap_total=cap_total, info=info)
+    record_impl(info, impl, ring=True)
     if strategy == "sharded":
         return P.sharded_neighbor_pairs(packed, max_dist, mesh=mesh,
                                         word_length=word_length)
@@ -418,11 +505,13 @@ def _mesh_search(packed, max_dist, strategy, *, metric, word_length, tile,
             packed, max_dist, word_length=word_length, mesh=mesh)
     except P.RingLimitExceeded:
         # A forced ring above its block cap completes through the dense
-        # tile sweep (also a kernel) rather than fail; counted, so a run
-        # can show it did not happen.
+        # tile sweep (also a kernel; by ``impl``) rather than fail;
+        # counted, so a run can show it did not happen.
         info["ring_fallbacks"] = 1
+        record_impl(info, impl)
         return find_neighbor_pairs(packed, max_dist, word_length=word_length,
-                                   tile=tile, strategy="dense", device=device)
+                                   tile=tile, strategy="dense", device=device,
+                                   impl=impl, cap_total=cap_total)
 
 
 def _segment_run_ids(packed: np.ndarray, word_length: int, n_seg: int):
@@ -597,6 +686,8 @@ def find_neighbor_pairs_runs(
     device: str | torch.device | None = None,
     info: dict | None = None,
     shard: tuple[int, int] | None = None,
+    impl: str | None = None,
+    cap_total: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Pigeonhole neighbour search by sorted-run enumeration on the host.
 
@@ -612,8 +703,9 @@ def find_neighbor_pairs_runs(
     reads) go to the Hamming tile sweep on ``device`` with its run-id
     mask, over only the tiles they span (:func:`_big_run_pairs`); when
     such runs cover more rows than the table has, one dense sweep finds
-    every pair once instead.  ``info`` receives "candidates" and
-    "dense_fallbacks".
+    every pair once instead; both sweeps by ``impl`` with the first
+    capacity ``cap_total`` (:func:`sweep`).  ``info`` receives
+    "candidates" and "dense_fallbacks".
 
     ``shard=(part, n_parts)`` keeps the runs this part owns (the salted
     hash of the run's key, salt = the partition): the part's candidates
@@ -676,11 +768,13 @@ def find_neighbor_pairs_runs(
         # partition; one dense sweep meets it once.
         return find_neighbor_pairs(packed, max_dist, word_length=word_length,
                                    tile=tile, strategy="dense", device=device,
-                                   shard=shard)
+                                   shard=shard, impl=impl,
+                                   cap_total=cap_total)
     if big_parts:
         big_parts.sort(key=lambda part: part[0])
         ba, bb = _big_run_pairs(packed, big_parts, max_dist, tile=tile,
-                                device=device)
+                                device=device, impl=impl,
+                                word_length=word_length, cap_total=cap_total)
         parts_a.append(ba)
         parts_b.append(bb)
     a = np.concatenate(parts_a)
@@ -691,8 +785,9 @@ def find_neighbor_pairs_runs(
 
 
 def _big_run_pairs(packed, big_parts, max_dist, *, tile: int = 2048,
-                   device=None):
-    """The Hamming tile sweep (kernel K1) restricted to oversized runs.
+                   device=None, impl=None, word_length=None, cap_total=None):
+    """The Hamming tile sweep (kernel K1, or ``impl``'s sweep) restricted
+    to oversized runs.
 
     For each (partition, order, big run starts, big run lengths) the
     partition's permuted rows are stacked; only rows inside big runs get
@@ -725,8 +820,9 @@ def _big_run_pairs(packed, big_parts, max_dist, *, tile: int = 2048,
     lanes, tp = sweep_tensors(np.concatenate(datas), np.concatenate(
         pair_lists), dev)
     ids = torch.from_numpy(np.concatenate(rids)).to(dev)
-    pa, pb = hamming_tile_pairs(lanes, tp, tile=b, part_stride=u_pad,
-                                part_valid=u, max_dist=max_dist, ids=ids)
+    pa, pb = sweep(lanes, tp, impl=impl, word_length=word_length,
+                   cap_total=cap_total, tile=b, part_stride=u_pad,
+                   part_valid=u, max_dist=max_dist, ids=ids)
     pa, pb = pa.cpu().numpy(), pb.cpu().numpy()
     # Stacked permuted positions -> unique-word indices, through each
     # partition's own order.
@@ -826,6 +922,8 @@ def find_neighbor_pairs_bucketed(
     device: str | torch.device | None = None,
     shard: tuple[int, int] | None = None,
     info: dict | None = None,
+    impl: str | None = None,
+    cap_total: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Subquadratic Hamming neighbour pairs via pigeonhole partitions
     (:func:`bucketed_inputs`).  Words of other runs in the swept tiles
@@ -833,7 +931,9 @@ def find_neighbor_pairs_bucketed(
     and a pair found in several partitions is deduplicated at the end.
 
     Complexity per partition ~ O(U/tile) diagonal tiles plus extra tiles
-    for runs crossing tile boundaries — versus O((U/tile)^2) dense.
+    for runs crossing tile boundaries — versus O((U/tile)^2) dense.  The
+    sweep runs by ``impl`` with the first capacity ``cap_total``
+    (:func:`sweep`).
 
     ``shard=(part, n_parts)`` sweeps the part's stripe of the stacked
     tile-pair list with the run-id mask on (each pair of a run lies in
@@ -858,7 +958,8 @@ def find_neighbor_pairs_bucketed(
             return _empty_pairs()
         ids = _stacked_run_ids(rows, u, u_pad, word_length, max_dist + 1)
     pa, pb = _tile_sweep(rows, tile_pairs, tile=b, u_pad=u_pad, u=u,
-                         max_dist=max_dist, device=dev, ids=ids)
+                         max_dist=max_dist, device=dev, ids=ids, impl=impl,
+                         word_length=word_length, cap_total=cap_total)
     # Stacked permuted positions -> original unique-word indices.
     ga = orders[pa // u_pad, pa % u_pad]
     gb = orders[pb // u_pad, pb % u_pad]

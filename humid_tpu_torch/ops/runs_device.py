@@ -137,6 +137,8 @@ def runs_device_pairs(
     device: str | torch.device | None = None,
     info: dict | None = None,
     shard: tuple[int, int] | None = None,
+    impl: str | None = None,
+    cap_total: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Pigeonhole neighbour search with the partitions and the in-run
     pairs evaluated on ``device``.
@@ -151,8 +153,9 @@ def runs_device_pairs(
     (d_max + 1, run_cap] rows are enumerated on the host while the sweeps
     run (d_max, a power of two up to ``d_cap``, grows until they hold
     under 2% of the table); runs longer than ``run_cap`` take the big-run
-    tile sweep, and giant runs the dense sweep.  ``info`` receives
-    "candidates", "dense_fallbacks", "d_max" and "decode".
+    tile sweep, and giant runs the dense sweep, both by ``impl`` with the
+    first capacity ``cap_total`` (:func:`.neighbors.sweep`).  ``info``
+    receives "candidates", "dense_fallbacks", "d_max" and "decode".
 
     ``shard=(part, n_parts)`` keeps the runs this part owns, by the host
     engine's rule: the ownership of each row's run is hashed here from
@@ -180,7 +183,8 @@ def runs_device_pairs(
         return find_neighbor_pairs_runs(packed, max_dist,
                                         word_length=word_length,
                                         run_cap=run_cap, tile=tile,
-                                        device=dev, info=info, shard=shard)
+                                        device=dev, info=info, shard=shard,
+                                        impl=impl, cap_total=cap_total)
     owned = None
     if shard is not None:
         owned = np.stack([_owned_mask(k, shard, salt_idx=p)
@@ -188,7 +192,8 @@ def runs_device_pairs(
     fp = FusedPipeline.from_table(packed, word_length=word_length,
                                   max_dist=max_dist, device=dev, d_cap=d_cap,
                                   run_cap=run_cap, tile=tile, shard=shard,
-                                  owned=owned)
+                                  owned=owned, impl=impl,
+                                  cap_total=cap_total)
     got: dict = {}
     pairs = fp.neighbors(info=got)
     info.update({k: got[k] for k in ("candidates", "dense_fallbacks", "d_max",

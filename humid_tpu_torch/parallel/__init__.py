@@ -15,9 +15,13 @@ from .neighbors import (sharded_edit_pairs_shifted, sharded_neighbor_pairs,
                         sharded_neighbor_pairs_bucketed)
 from .pipeline import run_distributed, run_sharded
 
+#: The reference's name for the ring route (K2 is its port).
+sharded_neighbor_pairs_pallas_ring = sharded_neighbor_pairs_ring
+
 __all__ = ["RingLimitExceeded", "data_mesh", "dedup_step",
            "distributed_components", "distributed_components_node_sharded",
            "pad_to_shards", "ring_fits", "ring_schedule", "run_distributed",
            "run_sharded", "sharded_edit_pairs_shifted",
            "sharded_neighbor_pairs", "sharded_neighbor_pairs_bucketed",
+           "sharded_neighbor_pairs_pallas_ring",
            "sharded_neighbor_pairs_ring"]

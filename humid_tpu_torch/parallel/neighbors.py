@@ -37,13 +37,13 @@ import numpy as np
 import torch
 
 from .._util import concat_aranges
-from ..ops.cuda_hamming import hamming_tile_pairs
 from ..ops.edit import _unpack, edit_tile_pairs
 from ..ops.hamming import lanes_tensor
 from ..ops.neighbors import (JoinCapExceeded, _dedupe_pairs, _empty_pairs,
                              _matching_runs, _partition_runs, _round_up,
                              _segment_run_ids, _sorted_run_counts,
-                             default_join_cap, shifted_joins, sweep_tensors)
+                             default_join_cap, record_impl, shifted_joins,
+                             sweep, sweep_tensors)
 from .cuda_ring import (ring_schedule, ring_slots,
                         sharded_neighbor_pairs_ring)
 from .mesh import data_mesh, pad_to_shards
@@ -251,10 +251,12 @@ def bucketed_shard_inputs(packed: np.ndarray, max_dist: int,
                 urows=[int(t) for t in shard_tot], gmaps=cut(gmaps))
 
 
-def _sweep_shards_on_cards(prep: dict, mesh, max_dist: int) -> list:
+def _sweep_shards_on_cards(prep: dict, mesh, max_dist: int,
+                           cap_start: int | None = None) -> list:
     """The tile sweep of every shard with rows, on the cards of ``mesh``
     at once: first every shard's uploads (pinned, without a wait) and its
-    own key buffer and counter, then every shard's K1 launches back to
+    own key buffer (of ``cap_start`` keys at most, default K1's
+    ``CAP_START``) and counter, then every shard's K1 launches back to
     back, each on its card's current stream; only then the reads.  The
     counters are read once per shard; a shard whose buffer overflowed is
     swept again with the exact capacity (all such reruns enqueued before
@@ -296,7 +298,8 @@ def _sweep_shards_on_cards(prep: dict, mesh, max_dist: int) -> list:
 
     for sh in shards:
         K._check(sh["lanes"], sh["tp"], **sh["kw"])
-    enqueue(shards, lambda sh: min(K.CAP_START,
+    first = K.CAP_START if cap_start is None else cap_start
+    enqueue(shards, lambda sh: min(first,
                                    len(sh["tp"]) * prep["tile"] ** 2))
     for sh in shards:
         sh["n"], bad = K._read_back(sh["counter"])
@@ -329,6 +332,9 @@ def sharded_neighbor_pairs_bucketed(
     cap_row: int = 16,
     run_cap: int = 2048,
     device: str | torch.device | None = None,
+    impl: str | None = None,
+    cap_total: int | None = None,
+    info: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Subquadratic mesh neighbour search: pigeonhole runs sharded over
     the device mesh.
@@ -344,12 +350,14 @@ def sharded_neighbor_pairs_bucketed(
     Degenerate data (giant equal-key runs covering most of the table in
     several partitions) would stack near-full copies of the table on the
     shards that own the giants; it goes to the dense ring instead, which
-    does O(U²/d) work uniformly.
+    does O(U²/d) work uniformly (``info["impl"]``, if asked for, then
+    becomes "pallas_ring": :func:`..ops.neighbors.record_impl`).
 
     On cards every shard is swept at once, as the reference's
     ``shard_map`` does (:func:`_sweep_shards_on_cards`); shards placed on
-    one card share its stream.  On the CPU the shards run the plain sweep
-    in turn."""
+    one card share its stream.  On the CPU, or with ``impl`` "xor" or
+    "mxu", the shards run that sweep in turn
+    (:func:`..ops.neighbors.sweep`, first capacity ``cap_total``)."""
     mesh = mesh or data_mesh(device=device)
     u, w = packed.shape
     if u <= 1 or max_dist == 0:
@@ -358,13 +366,14 @@ def sharded_neighbor_pairs_bucketed(
         prep = bucketed_shard_inputs(packed, max_dist, word_length,
                                      len(mesh), tile, run_cap)
     except GiantRuns:
+        record_impl(info, impl, ring=True)
         return sharded_neighbor_pairs(packed, max_dist, mesh=mesh,
                                       cap_row=cap_row,
                                       word_length=word_length)
     if prep is None:
         return _empty_pairs()
-    if mesh[0].type == "cuda":
-        found = _sweep_shards_on_cards(prep, mesh, max_dist)
+    if mesh[0].type == "cuda" and impl in (None, "pallas", "pallas_ring"):
+        found = _sweep_shards_on_cards(prep, mesh, max_dist, cap_total)
     else:
         found = []
         for si, dev in enumerate(mesh):
@@ -372,11 +381,13 @@ def sharded_neighbor_pairs_bucketed(
                 continue
             lanes, tp = sweep_tensors(prep["rows"][si],
                                       prep["tile_pairs"][si], dev)
-            a, b = hamming_tile_pairs(
-                lanes, tp, tile=prep["tile"], part_stride=prep["r_pad"],
+            a, b = sweep(
+                lanes, tp, impl=impl, word_length=word_length,
+                cap_total=cap_total,
+                tile=prep["tile"], part_stride=prep["r_pad"],
                 part_valid=prep["urows"][si], max_dist=max_dist,
-                ids=torch.from_numpy(prep["ids"][si]))
-            found.append((si, a.numpy(), b.numpy()))
+                ids=torch.from_numpy(prep["ids"][si]).to(dev))
+            found.append((si, a.cpu().numpy(), b.cpu().numpy()))
     if not found:
         return _empty_pairs()
     parts_a, parts_b = [], []

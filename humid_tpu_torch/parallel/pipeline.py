@@ -45,7 +45,8 @@ import numpy as np
 from .. import words as W
 from ..io import FastqWriter, build_records, build_records_annotated
 from ..io import make_file_names, read_tuples
-from ..io.reader import _open_stream, is_gzip_file, iter_chunk_newline_counts
+from ..io.reader import (_open_stream, is_gzip_file, iter_chunk_newline_counts,
+                         skip_to_record)
 from ..ops import find_neighbor_pairs, pairs_to_csr
 from ..ops.unique import unique_words
 from . import multihost as MH
@@ -196,24 +197,32 @@ def _spill_gz_range(path: str, lo: int, hi: int, spill_path: str):
     return start_off, end_off
 
 
-def spill_gz_ranges(files, lo: int, hi: int, tables):
+def _plain_offset(path: str, k: int, table) -> int | None:
+    """Byte offset of record ``k`` of a plain file: from its count scan's
+    chunk table where there is one, else by a newline scan."""
+    return (skip_to_record(path, k) if table is None
+            else _offset_from_table(path, k, table))
+
+
+def spill_gz_ranges(files, lo: int, hi: int, tables=None):
     """Spill every gzip input's [lo, hi) range to a private scratch
     directory; plain files pass through, their offsets from their count
-    scan ``tables`` (:func:`count_records_with_tables`).  Returns (local
-    files, start offsets, the directory); the caller removes the
-    directory."""
+    scan ``tables`` (:func:`count_records_with_tables`; None when no scan
+    was made: the files are sniffed here).  Returns (local files, start
+    offsets, the directory); the caller removes the directory."""
     spill_dir = tempfile.mkdtemp(prefix="humid_tpu_torch_gzspill_")
     files_local = list(files)
     offs = []
     try:
         for i, f in enumerate(files):
-            if tables[i] is None:
+            table = None if tables is None else tables[i]
+            if is_gzip_file(f) if tables is None else table is None:
                 sp = os.path.join(
                     spill_dir, f"spill{i:03d}_{os.path.basename(f)}.plain")
                 offs.append(_spill_gz_range(f, lo, hi, sp)[0])
                 files_local[i] = sp
             else:
-                offs.append(_offset_from_table(f, lo, tables[i]))
+                offs.append(_plain_offset(f, lo, table))
         return files_local, offs, spill_dir
     except BaseException:
         shutil.rmtree(spill_dir, ignore_errors=True)
@@ -268,6 +277,7 @@ def _use_sharded_cluster(u: int, n_proc: int) -> bool:
 
 def _compute_sharded(files, *, word_length: int = 24, distance: int = 1,
                      edit: bool = False, maximum: bool = False,
+                     total_records: int | None = None,
                      process_id: int | None = None,
                      num_processes: int | None = None, all_gather=None,
                      neighbor_opts: dict | None = None,
@@ -276,7 +286,8 @@ def _compute_sharded(files, *, word_length: int = 24, distance: int = 1,
     """The compute stage of the multi-process pipeline: the global
     clustering, this process's local arrays for the output stage, the
     search's ``engine`` record and per-phase wall seconds (the scaling
-    report's input)."""
+    report's input).  ``total_records`` (the lockstep record count, where
+    the caller knows it) skips the count scan."""
     from .._util import avail_bytes
     from ..pipeline import (_span_acc_new, _span_tables_from_accs,
                             cluster_dispatch)
@@ -303,10 +314,14 @@ def _compute_sharded(files, *, word_length: int = 24, distance: int = 1,
                 "merge would use this process's table alone")
         all_gather = MH.default_all_gather
     dev = MH.process_device(device, p)
-    total_records, tables = count_records_with_tables(files)
+    tables = None
+    if total_records is None:
+        total_records, tables = count_records_with_tables(files)
     lo, hi = MH.host_record_range(total_records, p, n_proc)
     files_local, start_offsets, spill_dir = list(files), None, None
-    if sharded and any(t is None for t in tables):
+    gz = ([is_gzip_file(f) for f in files] if tables is None
+          else [t is None for t in tables])
+    if sharded and any(gz):
         # Each gzip input's [lo, hi) goes to a sparse plain spill in one
         # inflate that stops at the range end; framing, packing, spans
         # and the output pass then run on the spill.
@@ -315,9 +330,10 @@ def _compute_sharded(files, *, word_length: int = 24, distance: int = 1,
         # The spill's time grows with the range end (the last process
         # inflates everything): absorb the skew before the first gather.
         MH.coordination_barrier("gz_spill")
-    elif all(t is not None for t in tables):
-        start_offsets = [_offset_from_table(f, lo, t)
-                         for f, t in zip(files, tables)]
+    elif not any(gz):
+        start_offsets = [_plain_offset(f, lo, None if tables is None
+                                       else tables[i])
+                         for i, f in enumerate(files)]
     span_accs = None
     if (collect_spans
             and os.environ.get("HUMID_TPU_TORCH_SPAN_CACHE") != "0"
@@ -399,6 +415,7 @@ def _compute_sharded(files, *, word_length: int = 24, distance: int = 1,
 
 def run_sharded(files, *, word_length: int = 24, distance: int = 1,
                 edit: bool = False, maximum: bool = False,
+                total_records: int | None = None,
                 process_id: int | None = None,
                 num_processes: int | None = None, all_gather=None,
                 neighbor_opts: dict | None = None, device=None):
@@ -406,10 +423,10 @@ def run_sharded(files, *, word_length: int = 24, distance: int = 1,
     range, the tables merge, and the global clustering is computed.
     Returns (ClusterResult, counts [U], first_occ [U] global read indices,
     uniq [U, W]): the same on every process, and the same as one process
-    over the whole input."""
+    over the whole input.  ``total_records`` skips the count scan."""
     st = _compute_sharded(
         files, word_length=word_length, distance=distance, edit=edit,
-        maximum=maximum, process_id=process_id,
+        maximum=maximum, total_records=total_records, process_id=process_id,
         num_processes=num_processes, all_gather=all_gather,
         neighbor_opts=neighbor_opts, device=device)
     if st["spill_dir"]:
@@ -555,7 +572,8 @@ def run_distributed(files, *, word_length: int = 24, distance: int = 1,
                     log_name: str = "/dev/stderr", dir_name: str = ".",
                     run_stats: bool = False, write_dedup: bool = True,
                     write_annotated: bool = False, edit: bool = False,
-                    maximum: bool = False, process_id: int | None = None,
+                    maximum: bool = False, total_records: int | None = None,
+                    process_id: int | None = None,
                     num_processes: int | None = None, all_gather=None,
                     barrier=None, finalize: bool = True,
                     batch_records: int = 1 << 17,
@@ -581,7 +599,7 @@ def run_distributed(files, *, word_length: int = 24, distance: int = 1,
     t = log.start("Reading data")
     st = _compute_sharded(
         files, word_length=word_length, distance=distance, edit=edit,
-        maximum=maximum, process_id=p,
+        maximum=maximum, total_records=total_records, process_id=p,
         num_processes=num_processes, all_gather=all_gather,
         neighbor_opts=neighbor_opts,
         collect_spans=write_dedup or write_annotated,

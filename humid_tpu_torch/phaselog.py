@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import os
 import time
+from contextlib import contextmanager
 
 import torch
 
@@ -41,7 +42,16 @@ class PhaseLog:
     def end(self, start: float) -> None:
         dt = time.time() - start
         seconds = int(dt)
-        self._f.write(f"done. ({seconds // 60}m{seconds % 60}s)\n")
+        self._close_phase(dt, f"done. ({seconds // 60}m{seconds % 60}s)")
+
+    def fail(self, start: float) -> None:
+        """Close a phase that raised: the log line says "failed.", and the
+        profiler range is closed (left open, it would claim every later
+        kernel for the dead phase)."""
+        self._close_phase(time.time() - start, "failed.")
+
+    def _close_phase(self, dt: float, verdict: str) -> None:
+        self._f.write(f"{verdict}\n")
         self._f.flush()
         if self._range is not None:
             self._range.__exit__(None, None, None)
@@ -49,6 +59,18 @@ class PhaseLog:
         if self._current is not None:
             self.timings.append((self._current, dt))
             self._current = None
+
+    @contextmanager
+    def phase(self, message: str):
+        """``with log.phase(message):`` — :meth:`start`, then :meth:`end`,
+        or :meth:`fail` if the body raises (the exception goes on)."""
+        t = self.start(message)
+        try:
+            yield
+        except BaseException:
+            self.fail(t)
+            raise
+        self.end(t)
 
     def write(self, text: str) -> None:
         self._f.write(text)

@@ -42,14 +42,15 @@ from ._device import resolve_device
 from ._util import avail_bytes, tune_malloc
 from .cluster import (cluster_exact, cluster_max_from_components,
                       connected_components_device)
+from .cluster.exact import CLUSTER_ENV_VAR
 from .errors import InputError
 from .io import (FastqWriter, build_records, build_records_annotated,
                  make_file_names, peek_first_record, read_tuples)
 from .io.reader import is_gzip_file
 from .io.writer import _ann_buffer, _build_output, compress_member
 from .ops import find_neighbor_pairs, pairs_to_csr, unique_words
-from .ops.neighbors import STRATEGY_ENV_VAR
-from .ops.unique import UNIQUE_ENV_VAR
+from .ops.neighbors import IMPL_ENV_VAR, STRATEGY_ENV_VAR, _combined_u64
+from .ops.unique import UNIQUE_ENV_VAR, _stable_argsort_u64
 from .phaselog import PhaseLog
 from .stats import write_statistics
 
@@ -83,6 +84,14 @@ try:
     from .io._fastqio import gather_prefix as _gather_prefix
 except ImportError:  # pragma: no cover - extension not built
     _encode_pack = _gather_prefix = None
+try:
+    from ._hostops import merge_unique_runs as _merge_unique_runs
+except ImportError:  # pragma: no cover - extension not built
+    _merge_unique_runs = None
+
+#: "1" asks for pass 1 overlapped with unique counting
+#: (:func:`overlap_unique`), the reference's HUMID_TPU_OVERLAP_UNIQUE.
+OVERLAP_ENV_VAR = "HUMID_TPU_TORCH_OVERLAP_UNIQUE"
 
 
 def _batch_words(batches, nt_to_take, header_umi_size):
@@ -214,16 +223,15 @@ def _span_stitch(part, acc: dict) -> None:
 #: Uniques above which -x asks the router for device components.
 DEVICE_COMPONENTS_MIN = 1 << 14
 
-#: "device" takes the device directional route (:func:`cluster_dispatch`).
-CLUSTER_ENV_VAR = "HUMID_TPU_TORCH_CLUSTER"
 #: A directory: :func:`run` writes a torch.profiler trace of the run there.
 PROFILE_ENV_VAR = "HUMID_TPU_TORCH_PROFILE"
 
 
 def cluster_dispatch(counts, indptr, indices, *, maximum: bool, pairs=None,
+                     device_threshold: int = DEVICE_COMPONENTS_MIN,
                      device=None, info: dict | None = None):
     """Cluster by the routed engine.  ``-x`` (maximum) on a table of more
-    than DEVICE_COMPONENTS_MIN uniques, where the router says so for
+    than ``device_threshold`` uniques, where the router says so for
     ``device``, finds connected components on the device (label
     propagation) and finishes ids, sizes, maxCount and maxLeaf on the
     host (:func:`cluster_max_from_components`, equal to the host walk).
@@ -231,9 +239,11 @@ def cluster_dispatch(counts, indptr, indices, *, maximum: bool, pairs=None,
     given and every count below 2^30 runs the device formulation
     (:func:`.cluster.directional_device.cluster_directional_device`, equal
     to the host walk; off by default).  Everything else takes the host
-    walk.  ``info`` receives "components" ("device" or "host") for -x and,
-    where the device directional route was asked for, "directional"
-    ("device", or "host" where the table did not qualify)."""
+    walk ($HUMID_TPU_TORCH_CLUSTER=parallel or =seq choose its variant,
+    :func:`cluster_exact`).  ``info`` receives "components" ("device" or
+    "host") for -x and, where the device directional route was asked
+    for, "directional" ("device", or "host" where the table did not
+    qualify)."""
     if not maximum and os.environ.get(CLUSTER_ENV_VAR) == "device":
         on_device = pairs is not None and (
             len(counts) == 0 or int(np.max(counts)) < (1 << 30))
@@ -249,7 +259,7 @@ def cluster_dispatch(counts, indptr, indices, *, maximum: bool, pairs=None,
         from ._backend import use_device_engine
 
         on_device = (pairs is not None and device is not None
-                     and len(counts) > DEVICE_COMPONENTS_MIN
+                     and len(counts) > device_threshold
                      and use_device_engine("cc", device, len(counts)))
         if info is not None:
             info["components"] = "device" if on_device else "host"
@@ -258,6 +268,117 @@ def cluster_dispatch(counts, indptr, indices, *, maximum: bool, pairs=None,
                                              device=device)
             return cluster_max_from_components(counts, indptr, indices, cc)
     return cluster_exact(counts, indptr, indices, maximum=maximum)
+
+
+def overlap_unique(w: int) -> bool:
+    """Whether a run of ``w``-lane words takes the overlapped pass 1 +
+    unique route (:func:`_pass1_overlapped`): asked for by
+    $HUMID_TPU_TORCH_OVERLAP_UNIQUE=1, and possible (words of at most two
+    lanes, both host extensions built).  Off by default, as in the
+    reference: it lost to the default route on the card's host (PERF.md).
+    An opt-in that cannot engage keeps the fused route open."""
+    return (w <= 2 and _merge_unique_runs is not None
+            and _encode_pack is not None
+            and os.environ.get(OVERLAP_ENV_VAR) == "1")
+
+
+def _pass1_overlapped(files, nt_to_take, header_umi_size, batch_records,
+                      cache: list | None, want_inverse: bool,
+                      run_rows: int = 8 << 20, span_accs: list | None = None):
+    """Pass 1 with unique counting folded in (words of at most two lanes;
+    the reference's ``_pass1_overlapped``).  The packing jobs also emit
+    (64-bit key, global read index) pairs of the usable reads; runs of
+    ``run_rows`` keys are sorted on the same pool while the reader
+    streams, and after the last batch one k-way merge
+    (``_hostops.merge_unique_runs``) builds the unique table.
+
+    Returns (total, usable, uniq [U, w] uint32, counts, first_occ (global
+    read indices), inverse by read [total] (-1 for filtered reads) or
+    None)."""
+    w = W.num_lanes(header_umi_size + sum(nt_to_take))
+    acc_k: list[np.ndarray] = []
+    acc_i: list[np.ndarray] = []
+    sort_futs: list = []
+    state = {"total": 0, "acc_n": 0}
+
+    def _pack(batches, base):
+        packed, filtered = _batch_words(batches, nt_to_take,
+                                        header_umi_size)
+        if filtered.any():
+            keep = ~filtered
+            keys = _combined_u64(packed[keep])
+            gidx = base + np.flatnonzero(keep)
+        else:
+            keys = _combined_u64(packed)
+            gidx = np.arange(base, base + len(packed), dtype=np.int64)
+        spans = None
+        if span_accs is not None:
+            spans = [_span_batch_part(b, a["hdr_parts"] is not None)
+                     if a["ok"] else None
+                     for b, a in zip(batches, span_accs)]
+        return keys, gidx, spans
+
+    def _sort_run(parts_k, parts_i):
+        k, i = np.concatenate(parts_k), np.concatenate(parts_i)
+        o = _stable_argsort_u64(k)
+        return k[o], i[o]
+
+    with ThreadPoolExecutor(max_workers=3) as ex:
+        inflight: deque = deque()
+
+        def _drain():
+            # In submission order, so span stitching sees stream order.
+            keys, gidx, spans = inflight.popleft().result()
+            if spans is not None:
+                for part, acc in zip(spans, span_accs):
+                    _span_stitch(part, acc)
+            acc_k.append(keys)
+            acc_i.append(gidx)
+            state["acc_n"] += len(keys)
+            if state["acc_n"] >= run_rows:
+                sort_futs.append(ex.submit(_sort_run, list(acc_k),
+                                           list(acc_i)))
+                acc_k.clear()
+                acc_i.clear()
+                state["acc_n"] = 0
+
+        for batches in read_tuples(files, batch_records,
+                                   prefix_ks=nt_to_take):
+            if cache is not None:
+                cache.append(batches)
+            inflight.append(ex.submit(_pack, batches, state["total"]))
+            state["total"] += batches[0].n
+            while len(inflight) > 4:
+                _drain()
+        while inflight:
+            _drain()
+        if state["acc_n"]:
+            sort_futs.append(ex.submit(_sort_run, acc_k, acc_i))
+        runs = [f.result() for f in sort_futs]
+
+    total = state["total"]
+    n_us = sum(len(r[0]) for r in runs)
+    if not n_us:
+        return (total, 0, np.zeros((0, w), np.uint32), np.zeros(0, np.int64),
+                np.zeros(0, np.int64),
+                np.full(total, -1, np.int64) if want_inverse else None)
+    keys_cat = np.concatenate([r[0] for r in runs])
+    idx_cat = np.concatenate([r[1] for r in runs])
+    offs = np.cumsum([0] + [len(r[0]) for r in runs]).astype(np.int64)
+    runs.clear()
+    uk = np.empty(n_us, np.uint64)
+    counts = np.empty(n_us, np.int64)
+    first_occ = np.empty(n_us, np.int64)
+    inv = (np.full(total, -1, np.int64) if want_inverse
+           else np.empty(1, np.int64))
+    k = _merge_unique_runs(keys_cat, idx_cat, offs, uk, counts, first_occ,
+                           int(want_inverse), inv)
+    uniq = np.empty((k, w), np.uint32)
+    uniq[:, 0] = (uk[:k] >> np.uint64(32)).astype(np.uint32)
+    if w == 2:
+        uniq[:, 1] = uk[:k].astype(np.uint32)
+    return (total, n_us, uniq, counts[:k].copy(), first_occ[:k].copy(),
+            inv if want_inverse else None)
 
 
 def _pass1(files, nt_to_take, header_umi_size, batch_records,
@@ -367,7 +488,9 @@ def run(
     The fused route (:mod:`.ops.fused`) is decided before pass 1, by
     :func:`humid_tpu_torch._backend.use_fused_pipeline`, for Hamming runs
     with ``distance >= 1`` and no ``neighbor_opts``,
-    $HUMID_TPU_TORCH_STRATEGY or $HUMID_TPU_TORCH_UNIQUE.
+    $HUMID_TPU_TORCH_STRATEGY, $HUMID_TPU_TORCH_IMPL,
+    $HUMID_TPU_TORCH_UNIQUE or engaged overlapped route
+    (:func:`overlap_unique`; "unique" is then "overlapped").
 
     ``profile_dir`` (or $HUMID_TPU_TORCH_PROFILE) wraps the whole run in
     ``torch.profiler`` (CPU activity, and CUDA on a CUDA device) and
@@ -449,9 +572,11 @@ def run(
     engine = res.extra["engine"] = {}
     wl = header_umi_size + sum(nt_to_take)
     w = W.num_lanes(wl)
+    overlapped = overlap_unique(w)
     feeder = None
-    if (not edit and distance >= 1 and not neighbor_opts
+    if (not edit and distance >= 1 and not neighbor_opts and not overlapped
             and not os.environ.get(STRATEGY_ENV_VAR)
+            and not os.environ.get(IMPL_ENV_VAR)
             and not os.environ.get(UNIQUE_ENV_VAR)):
         from ._backend import use_fused_pipeline
 
@@ -501,6 +626,18 @@ def run(
         # Counts, first occurrences and the inverse are read after the
         # neighbour programs are launched; the table stays on the device.
         log.timings.append(("unique counting (fused)", time.time() - t_uni))
+    elif overlapped:
+        # The span covers the read: unique counting rides inside it.
+        t_uni = time.time()
+        (res.total, res.usable, uniq, counts, first_occ,
+         inv_by_read) = _pass1_overlapped(
+            files, nt_to_take, header_umi_size, batch_records, cache,
+            want_inverse=write_annotated, span_accs=span_accs)
+        log.end(t)
+        engine["unique"] = "overlapped"
+        log.timings.append(("unique counting (overlapped)",
+                            time.time() - t_uni))
+        res.unique = len(uniq)
     else:
         packed, filtered = _pass1(files, nt_to_take, header_umi_size,
                                   batch_records, cache, span_accs=span_accs)

@@ -2,7 +2,7 @@
 package's ``bench.py``.
 
     python -m humid_tpu_torch.tools.bench [--reads N] [--distance D]
-                                          [--no-warmup]
+                                          [--no-warmup] [--runs R]
 
 Measures reads/s of ``humid_tpu_torch.run`` on a synthetic dataset (one
 single-end FastQ of N 100-base reads drawn from a pool of N/8 sequences,
@@ -10,7 +10,9 @@ single-end FastQ of N 100-base reads drawn from a pool of N/8 sequences,
 same arguments) with ``bench.py``'s flags: distance D, dedup output only,
 no statistics, no annotated output, the default word length.  After one
 untimed warm-up run (kernel builds, the router's calibration, CUDA start),
-it samples runs until the best has stopped improving (``sampling_done``),
+it samples runs until the best has stopped improving (``sampling_done``;
+``--runs R`` takes exactly R runs instead: the memory curve of a long
+process),
 times ``baseline/humid_ref`` (single-core C++, the reference's semantics)
 twice on the same file with the same flags, and prints ONE JSON line:
 ``bench.py``'s keys in its order, then ``baseline_source`` ("humid_ref",
@@ -216,10 +218,11 @@ def rss_mib() -> float | None:
 
 def bench(n_reads: int, distance: int = 1, warmup: bool = True, *,
           work_dir: str, budget: float, humid_ref: str = HUMID_REF,
-          device=None) -> dict:
+          device=None, runs: int | None = None) -> dict:
     """Run the bench in ``work_dir``; print its JSON line to stdout and
     bench.py's notes (and the warm-up, the samples, phase seconds and
-    memory per run) to stderr; return the JSON record."""
+    memory per run) to stderr; return the JSON record.  ``runs`` fixes
+    the number of timed runs (default: ``sampling_done`` decides)."""
     dev = resolve_device(device)
     os.makedirs(work_dir, exist_ok=True)
     fq = os.path.join(work_dir, f"bench_{n_reads}.fastq")
@@ -265,8 +268,8 @@ def bench(n_reads: int, distance: int = 1, warmup: bool = True, *,
             phases_by_run.setdefault(k, []).append(round(v, 4))
         if best is None or d <= best:
             best, res = d, r  # phases reported below come from the best run
-        if sampling_done(samples, micro, time.perf_counter() - t_bench,
-                         budget):
+        if (len(samples) >= runs if runs is not None else sampling_done(
+                samples, micro, time.perf_counter() - t_bench, budget)):
             break
 
     rps = n_reads / best
@@ -317,11 +320,16 @@ def main(argv=None) -> int:
     p.add_argument("--reads", type=int, default=1_000_000)
     p.add_argument("--distance", type=int, default=1)
     p.add_argument("--no-warmup", action="store_true")
+    p.add_argument("--runs", type=int, default=None,
+                   help="timed runs (default: until the best stops "
+                        "improving)")
     args = p.parse_args(argv)
+    if args.runs is not None and args.runs < 1:
+        p.error("--runs must be at least 1")
     bench(args.reads, args.distance, not args.no_warmup,
           work_dir=os.path.join(tempfile.gettempdir(),
                                 "humid_tpu_torch_bench"),
-          budget=max(90.0, args.reads / 80_000))
+          budget=max(90.0, args.reads / 80_000), runs=args.runs)
     return 0
 
 

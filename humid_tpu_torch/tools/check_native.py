@@ -47,7 +47,10 @@ words.  A read of padding or of a neighbouring row that reached a result
 would change the pairs; a write past the buffer, or a slot left
 unwritten, shows in the sentinels.  What these guards do not see: a
 read outside the table that changes nothing, and races in shared memory
-(racecheck's domain).
+(racecheck's domain).  For races, :func:`repeat_cases` stands in: every
+case launched REPEATS (20) times with the first capacity forced to 16
+pairs (each call overflows and relaunches), each result bit for bit
+equal to the first run's and the plain version's.
 
 The last line is one JSON summary; the exit code is 1 if any check found
 an error or a mismatch (a sanitizer that cannot attach is not an error,
@@ -64,6 +67,7 @@ import shutil
 import subprocess
 import sys
 import sysconfig
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,12 +98,9 @@ def _asan_lib(compiler: str) -> str | None:
     return path if os.path.isabs(path) and os.path.exists(path) else None
 
 
-def asan_toolchain() -> dict | None:
-    """{"cc", "cxx", "libasan"} of the first compiler pair whose own
-    libasan exists: the one setup.py would take ($CC/$CXX, else gcc/g++
-    on the path), else the system's in /usr/bin.  A compiler without
-    ASan's runtime cannot link -fsanitize=address.  None if there is
-    none."""
+def compiler_pairs() -> list[tuple[str, str]]:
+    """(cc, cxx) candidates in the order setup.py would take them:
+    $CC/$CXX, else gcc/g++ on the path, then the system's in /usr/bin."""
     pairs = []
     if os.environ.get("CXX"):
         pairs.append((os.environ.get("CC", "gcc"), os.environ["CXX"]))
@@ -107,10 +108,39 @@ def asan_toolchain() -> dict | None:
         cc, cxx = (shutil.which(n, path=where) for n in ("gcc", "g++"))
         if cc and cxx:
             pairs.append((cc, cxx))
-    for cc, cxx in pairs:
+    return pairs
+
+
+def asan_toolchain() -> dict | None:
+    """{"cc", "cxx", "libasan"} of the first compiler pair
+    (:func:`compiler_pairs`) whose own libasan exists.  A compiler
+    without ASan's runtime cannot link -fsanitize=address.  None if there
+    is none."""
+    for cc, cxx in compiler_pairs():
         lib = _asan_lib(cxx)
         if lib:
             return {"cc": cc, "cxx": cxx, "libasan": lib}
+    return None
+
+
+_OPENMP_PROBE = ("#include <omp.h>\n"
+                 "int main() { return omp_get_max_threads() > 0 ? 0 : 1; }\n")
+
+
+def openmp_toolchain() -> dict | None:
+    """{"cc", "cxx"} of the first compiler pair (:func:`compiler_pairs`)
+    whose C++ compiler compiles and links ``-fopenmp`` (a compiler
+    without its OpenMP runtime, libgomp, cannot), or None."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "omp.cpp")
+        with open(src, "w") as f:
+            f.write(_OPENMP_PROBE)
+        for cc, cxx in compiler_pairs():
+            proc = subprocess.run(
+                [cxx, "-fopenmp", src, "-o", os.path.join(tmp, "omp")],
+                capture_output=True, text=True)
+            if proc.returncode == 0:
+                return {"cc": cc, "cxx": cxx}
     return None
 
 
@@ -512,6 +542,71 @@ def run_kernel_cases(device, guards: bool | None = None) -> dict:
     return out
 
 
+#: Launches per case of the repeat check (:func:`repeat_cases`).
+REPEATS = 20
+
+
+def repeat_cases(device, repeats: int = REPEATS) -> dict:
+    """A stand-in for racecheck, which cannot attach to the card: every
+    kernel case launched ``repeats`` times on the same input with the
+    first capacity forced to 16 pairs (so that each call overflows its
+    buffer, counts past it and relaunches), each result compared bit for
+    bit with the first run's and with the plain version.  A race on the
+    shared-memory hit buffer, its flush or the global counter that
+    changed a pair or a count would show as a difference between runs.
+    Returns launches and cases per kernel; raises on any difference."""
+    import torch
+
+    from ..ops import cuda_hamming as H
+    from ..parallel import cuda_ring as R
+
+    out = {"hamming_sweep": {"cases": 0, "launches": 0},
+           "ring_sweep": {"cases": 0, "launches": 0}, "repeats": repeats}
+
+    def same_every_time(name, call, want, counter: dict):
+        before = H.LAUNCHES + R.LAUNCHES
+        first = call()
+        _same(f"{name} (repeat 0)", first, want)
+        for i in range(1, repeats):
+            got = call()
+            if not (torch.equal(got[0], first[0])
+                    and torch.equal(got[1], first[1])):
+                raise AssertionError(f"{name}: repeat {i} differs from "
+                                     f"repeat 0")
+        counter["cases"] += 1
+        counter["launches"] += H.LAUNCHES + R.LAUNCHES - before
+
+    for c in k1_cases():
+        tp = torch.from_numpy(c["tile_pairs"])
+        ids = None if c["ids"] is None else torch.from_numpy(c["ids"])
+        want = H.hamming_tile_pairs_plain(_t(c["rows"], "cpu"), tp, ids=ids,
+                                          **_k1_kw(c))
+        lanes, tp_d = _t(c["rows"], device), tp.to(device)
+        ids_d = None if ids is None else ids.to(device)
+        same_every_time(
+            f"K1 {c['name']}",
+            lambda: H.hamming_tile_pairs(lanes, tp_d, ids=ids_d,
+                                         cap_start=16, **_k1_kw(c)),
+            want, out["hamming_sweep"])
+    cap0, R.CAP_START = R.CAP_START, 16
+    try:
+        for c in k2_cases():
+            kw = {k: c[k] for k in ("row_base", "col_base", "u", "max_dist",
+                                    "upper_only")}
+            want = R.ring_block_pairs_plain(_t(c["rows"], "cpu"),
+                                            _t(c["cols"], "cpu"), **kw)
+            rows, cols = _t(c["rows"], device), _t(c["cols"], device)
+            same_every_time(f"K2 {c['name']}",
+                            lambda: R.ring_block_pairs(rows, cols, **kw),
+                            want, out["ring_sweep"])
+    finally:
+        R.CAP_START = cap0
+    print(f"check_native repeat cases on {device} (first capacity 16, "
+          f"{repeats} launches a case, each result == the first and the "
+          f"plain version): {json.dumps(out)}", flush=True)
+    return out
+
+
 def sanitizer_path() -> Path:
     """compute-sanitizer beside nvcc."""
     from .. import _build
@@ -612,9 +707,13 @@ def device_half(device) -> dict:
               f"only the guard checks below ran", flush=True)
     t0 = time.perf_counter()
     cases = run_kernel_cases(device, guards=True)
+    guarded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    repeats = repeat_cases(device)
     return {"sanitizer": tools, "unchecked": unsupported,
-            "guarded_cases": cases,
-            "guarded_s": time.perf_counter() - t0,
+            "guarded_cases": cases, "guarded_s": guarded_s,
+            "repeat_cases": repeats,
+            "repeat_s": time.perf_counter() - t0,
             "errors": sum(r["status"] == "errors" for r in tools.values())}
 
 

@@ -70,6 +70,13 @@ def extract_umi(header: str) -> str:
     return ""
 
 
+def make_string_size(s: str, size: int, padding: str = "N") -> str:
+    """Cut or pad ``s`` to exactly ``size`` chars (fastq.cc:57-66)."""
+    if size <= len(s):
+        return s[:size]
+    return s + padding * (size - len(s))
+
+
 def nt_from_file(n_files: int, length: int) -> list[int]:
     """Split ``length`` nt over ``n_files``; remainder to the LAST file
     (fastq.cc:220-230)."""

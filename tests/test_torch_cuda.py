@@ -97,6 +97,72 @@ def test_kernel_matches_plain(length, cuda_device):
     assert K.LAUNCHES == launches + 2
 
 
+@pytest.mark.parametrize("length", [24, 33, 256])
+def test_onehot_route_matches_kernel_and_plain(length, cuda_device):
+    """The one-hot matrix-product route (``impl="mxu"``; bf16 products on
+    the card) == K1 == the plain version on the card, up to the longest
+    word it takes (256 bases: bf16 holds the match counts exactly),
+    with disabled tile pairs, padding rows and a run-id mask."""
+    from humid_tpu_torch.ops import hamming as H
+
+    rng = np.random.default_rng(700 + length)
+    rows = _words(rng, 4000, length)
+    pairs = _upper_pairs(8)
+    on = (np.arange(len(pairs)) % 5 != 3).astype(np.int32)
+    lanes, tp = _tensors(rows, pairs, cuda_device, on)
+    ids = torch.from_numpy((np.arange(4000) // 300).astype(np.int32)).to(
+        cuda_device)
+    for mask in (None, ids):
+        kw = dict(tile=512, part_stride=2048, part_valid=1900,
+                  max_dist=1 + length // 16, ids=mask)
+        want = K.hamming_tile_pairs_plain(lanes, tp, **kw)
+        assert len(want[0]) > 0
+        got_k1 = K.hamming_tile_pairs(lanes, tp, **kw)
+        got = H.onehot_tile_pairs(lanes, tp, word_length=length,
+                                  cap_total=16, **kw)
+        for g in (got_k1, got):
+            assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+
+
+@pytest.mark.parametrize("fn", ["hamming_block_xor", "hamming_block_mxu"])
+def test_block_functions_default_to_the_card(fn, cuda_device, monkeypatch):
+    """The block functions take numpy input to the card when no device is
+    asked for, and give the CPU's result there."""
+    from humid_tpu_torch.ops import hamming as H
+
+    monkeypatch.delenv("HUMID_TPU_TORCH_DEVICE", raising=False)
+    rng = np.random.default_rng(71)
+    table, _, _, _ = unique_words(_words(rng, 3000, 24, pool=40),
+                                  want_inverse=False)
+    args = (table[:900], table[500:1700], 0, 500, 1, 4096) + (
+        (24,) if fn == "hamming_block_mxu" else ())
+    got = getattr(H, fn)(*args)
+    want = getattr(H, fn)(*args, device="cpu")
+    assert got[0].device.type == "cuda" and int(want[2]) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("impl", ["xor", "pallas", "mxu"])
+@pytest.mark.parametrize("engine", ["dense", "bucketed", "runs_device"])
+def test_impls_on_cuda_match_cpu(engine, impl, cuda_device):
+    """Every ``impl`` of the tile sweep through the engines on the card
+    == the same engine on the CPU; only "pallas" launches K1."""
+    rng = np.random.default_rng(31)
+    table, _, _, _ = unique_words(_words(rng, 6000, 24, pool=60),
+                                  want_inverse=False)
+    want = N.find_neighbor_pairs(table, 1, word_length=24, tile=512,
+                                 strategy=engine, device="cpu")
+    launches = K.LAUNCHES
+    got = N.find_neighbor_pairs(table, 1, word_length=24, tile=512,
+                                strategy=engine, impl=impl,
+                                device=cuda_device)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    if engine != "runs_device":
+        assert (K.LAUNCHES > launches) == (impl == "pallas")
+
+
 @pytest.mark.parametrize("tile", [256, 512, 2048])
 @pytest.mark.parametrize("length", [14, 24, 40, 72, 256])  # w = 1, 2, 3, 5, 16
 def test_kernel_matches_plain_by_width_and_tile(length, tile, cuda_device):

@@ -233,3 +233,142 @@ def test_run_end_to_end(monkeypatch, tmp_path, gz, maximum, edit):
 
             got, want = gzip.decompress(got), gzip.decompress(want)
         assert got == want, f
+
+
+# --------------------------------------------------- the two opt-in routes
+
+def _csr_lists(neigh):
+    indptr = np.zeros(len(neigh) + 1, np.int64)
+    for i, lst in enumerate(neigh):
+        indptr[i + 1] = indptr[i] + len(lst)
+    return indptr, np.asarray([j for lst in neigh for j in lst], np.int64)
+
+
+def _oracle_walk(counts, neigh, maximum):
+    """``tests/oracle.py``'s literal recursion over the same graph:
+    (labels, [(size, max_leaf, max_count)] per cluster)."""
+    from oracle import _Cluster, _Leaf, _assign_directional, _assign_max
+
+    leaves = [_Leaf(count=int(c), neighbours=list(lst))
+              for c, lst in zip(counts, neigh)]
+    clusters = []
+    for i, leaf in enumerate(leaves):
+        if leaf.cluster is None:
+            c = _Cluster(len(clusters) + 1)
+            (_assign_max if maximum else _assign_directional)(leaves, i, c)
+            clusters.append(c)
+    return ([leaf.cluster.id for leaf in leaves],
+            [(c.size, c.max_leaf, c.max_count) for c in clusters])
+
+
+@pytest.mark.parametrize("maximum", [False, True])
+def test_component_parallel_walk(maximum, monkeypatch):
+    """``cluster_exact(parallel=True)`` (``cluster_parallel_into``, OpenMP
+    over components) equals the sequential walk and the oracle on random
+    graphs and on a table's neighbour graph; the default and
+    $HUMID_TPU_TORCH_CLUSTER=seq take the sequential walk, =parallel the
+    parallel one."""
+    _built("cluster._ccluster")
+    rng = np.random.default_rng(23 + maximum)
+    for trial in range(20):
+        n = int(rng.integers(2, 150))
+        counts = rng.integers(1, 20, n).astype(np.int64)
+        neigh = [[] for _ in range(n)]
+        for i in range(n):
+            for j in range(i + 1, n):
+                if rng.random() < 3.0 / n:
+                    neigh[i].append(j)
+                    neigh[j].append(i)
+        indptr, indices = _csr_lists(neigh)
+        par = exact.cluster_exact(counts, indptr, indices, maximum=maximum,
+                                  parallel=True)
+        seq = exact.cluster_exact(counts, indptr, indices, maximum=maximum,
+                                  parallel=False)
+        labels, clusters = _oracle_walk(counts, neigh, maximum)
+        assert par.labels.tolist() == labels, trial
+        assert list(zip(par.size.tolist(), par.max_leaf.tolist(),
+                        par.max_count.tolist())) == clusters, trial
+        _equal([par.labels, par.max_leaf, par.max_count, par.size],
+               [seq.labels, seq.max_leaf, seq.max_count, seq.size])
+    table = _table(rng, 4000, 24, 300)
+    a, b = N.find_neighbor_pairs(table, 1, strategy="runs", word_length=24,
+                                 device="cpu")
+    indptr, indices = N.pairs_to_csr(a, b, len(table))
+    counts = rng.integers(1, 40, len(table)).astype(np.int64)
+    walks = []
+    real = exact._native.cluster
+
+    def spy(*args, **kw):
+        walks.append(kw["parallel"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(exact._native, "cluster", spy)
+    results = []
+    for env in (None, "seq", "parallel"):
+        with monkeypatch.context() as m:
+            if env is None:
+                m.delenv(exact.CLUSTER_ENV_VAR, raising=False)
+            else:
+                m.setenv(exact.CLUSTER_ENV_VAR, env)
+            r = exact.cluster_exact(counts, indptr, indices, maximum=maximum)
+        results.append([r.labels, r.max_leaf, r.max_count, r.size])
+    assert walks == [False, False, True]
+    _equal(results[2], results[0])
+
+
+def test_component_parallel_interleaved_seed_order():
+    """Cluster ids of different components interleave by seed rank
+    (the reference's case, ``tests/test_cluster.py:159``): components
+    {0, 2} and {1, 3} seed clusters 1 and 2 in index order."""
+    _built("cluster._ccluster")
+    counts = np.array([5, 7, 2, 3], np.int64)
+    indptr, indices = _csr_lists([[2], [3], [0], [1]])
+    seq = exact.cluster_exact(counts, indptr, indices, parallel=False)
+    par = exact.cluster_exact(counts, indptr, indices, parallel=True)
+    _equal([par.labels, par.max_leaf], [seq.labels, seq.max_leaf])
+    assert par.labels.tolist() == [1, 2, 1, 2]
+
+
+@pytest.mark.parametrize("gz,annotated,n_files", [
+    (False, True, 1), (True, False, 2), (False, False, 3)])
+def test_overlapped_pass1_route(monkeypatch, tmp_path, gz, annotated,
+                                n_files):
+    """$HUMID_TPU_TORCH_OVERLAP_UNIQUE=1 (the overlapped pass 1 + unique
+    route, ``merge_unique_runs``) writes the default route's bytes, with
+    runs small enough that several sorted runs are merged; wide words
+    (three lanes) cannot take it and run the default route."""
+    for name in ("_hostops", "io._cfastqio"):
+        _built(name)
+    paths, _ = gen_dataset(np.random.default_rng(40 + n_files),
+                           str(tmp_path), n_reads=900, n_files=n_files,
+                           umi_style="underscore", gz=gz, ragged=True)
+    real = pipeline._pass1_overlapped
+    monkeypatch.setattr(pipeline, "_pass1_overlapped",
+                        lambda *a, **kw: real(*a, **{**kw, "run_rows": 128}))
+
+    def go(tag, word_length, overlap):
+        with monkeypatch.context() as m:
+            if overlap:
+                m.setenv(pipeline.OVERLAP_ENV_VAR, "1")
+            else:
+                m.delenv(pipeline.OVERLAP_ENV_VAR, raising=False)
+            out = tmp_path / tag
+            res = pipeline.run(paths, word_length=word_length, distance=1,
+                               dir_name=str(out), log_name=os.devnull,
+                               run_stats=True, write_annotated=annotated,
+                               batch_records=100, device="cpu")
+        files = {f: (out / f).read_bytes() for f in sorted(os.listdir(out))}
+        return res.extra["engine"]["unique"], files
+
+    for word_length, route in ((24, "overlapped"), (40, "host")):
+        ran, got = go(f"ovl{word_length}", word_length, True)
+        assert ran == route
+        _, want = go(f"def{word_length}", word_length, False)
+        assert got.keys() == want.keys()
+        for f in got:
+            a, b = got[f], want[f]
+            if f.endswith(".gz"):
+                import gzip
+
+                a, b = gzip.decompress(a), gzip.decompress(b)
+            assert a == b, f

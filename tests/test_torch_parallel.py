@@ -107,7 +107,7 @@ def test_sharded_bucketed_giant_runs_fall_back_to_ring(monkeypatch):
         P.neighbors.bucketed_shard_inputs(uniq, 2, 24, 4, run_cap=16)
     swept = []
     monkeypatch.setattr(
-        P.neighbors, "hamming_tile_pairs",
+        P.neighbors, "sweep",
         lambda *a, **k: swept.append(1))  # the tile sweep must not run
     _same(P.sharded_neighbor_pairs_bucketed(
         uniq, 2, word_length=24, mesh=_cpu_mesh(4), run_cap=16), want)

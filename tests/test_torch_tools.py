@@ -341,3 +341,31 @@ def test_check_native_classifies_sanitizer_output(name):
         assert "Device not supported" in rec["reason"]
     if name == "unsupported_and_a_read":
         assert "Invalid __global__ read of size 4 bytes" in rec["records"]
+
+
+def test_openmp_toolchain_takes_the_first_pair_that_links(monkeypatch):
+    """``openmp_toolchain`` (phase 24's compiler choice) takes the first
+    pair whose C++ compiler links -fopenmp, skipping one that cannot, and
+    is None when no pair can."""
+    cxx = CN.compiler_pairs()
+    if not cxx or CN.openmp_toolchain() is None:
+        pytest.skip("no compiler here links -fopenmp")
+    good = CN.openmp_toolchain()
+    monkeypatch.setattr(CN, "compiler_pairs",
+                        lambda: [("false", "false"),
+                                 (good["cc"], good["cxx"])])
+    assert CN.openmp_toolchain() == good
+    monkeypatch.setattr(CN, "compiler_pairs", lambda: [("false", "false")])
+    assert CN.openmp_toolchain() is None
+
+
+def test_check_native_repeat_cases_on_the_cpu():
+    """The racecheck stand-in on the CPU (the plain versions, two
+    repeats): every case's results equal, K2's first capacity restored."""
+    from humid_tpu_torch.parallel import cuda_ring as R
+
+    cap = R.CAP_START
+    out = CN.repeat_cases(torch.device("cpu"), repeats=2)
+    assert out["hamming_sweep"]["cases"] == len(CN.k1_cases())
+    assert out["ring_sweep"]["cases"] == len(CN.k2_cases())
+    assert R.CAP_START == cap
