@@ -10,8 +10,10 @@ Phases, each printing its own line; any failure exits non-zero:
 1. CUDA is present; the card's name and power limit (nvidia-smi).
 2. Both kernels (humid_tpu_torch/csrc/hamming_sweep.cu, ring_sweep.cu)
    are built from source with nvcc, one process each, started together
-   (seconds; ptxas reports printed).  Their disassembly must show the
-   inner loop spending ceil(w / 2) POPC per column at w = 2 and w = 3.
+   (seconds; ptxas reports printed).  Their disassembly must show, at
+   w = 2 and w = 3, the tile sweep's products on the int8 warpgroup MMA
+   (``IGMMA...S8.S8``, one per k-step of the encoded word) and the ring
+   step's inner loop spending ceil(w / 2) POPC per column.
 3. Kernel vs its plain PyTorch version on the card, on sweep inputs built
    exactly as the neighbour engines build them: the bucketed table of a
    1M-read sample (~2e5 uniques) and of a 10M-read sample (~2e6
@@ -25,12 +27,14 @@ Phases, each printing its own line; any failure exits non-zero:
    buffer allocated beforehand, nothing else between the events);
    ``no_hit_kernel_ms``, the same with max_dist -1, where no pair passes;
    ``ms``, the wrapper ``hamming_tile_pairs`` (allocation, launch, the
-   one read-back, the sort); ``plain_ms``, the plain version.  Beside
-   them the bound of the exact-integer POPC form for the shape (not the
-   card's: ``bound_ms``) and the kernel's share of it, and the card's
-   ``roofline_ms``: the lesser of that bound and the one-hot int8
-   tensor-core form's (``roofline``); a kernel time below either fails
-   the phase.  Phases 6 and 8 print both for their shapes too.
+   one read-back, the sort, and the encoded table the wrapper builds);
+   ``plain_ms``, the plain version.  Beside them the bound of the form
+   the kernel runs, the simplex int8 tensor-core form (3 x 16 w
+   multiply-adds a pair: ``bound_ms``, ``form``), and the kernel's share
+   of it, and the card's ``roofline_ms``: the least of the POPC, one-hot
+   and simplex forms' bounds (``roofline``); a kernel time below either
+   fails the phase.  Phase 6 prints both for its shape too, phase 8 the
+   ring step's POPC bound (K2 keeps the POPC form) and the roofline.
 4. End to end: a 1M-read sample made by the benchmark recipe (single-end
    100 bp, dup factor 8, 30% one-substitution reads;
    ``humid_tpu_torch.tools.bench.gen_dataset``, bench.py's recipe), run
@@ -197,8 +201,10 @@ Phases, each printing its own line; any failure exits non-zero:
     the main path's shape, for the tile sweep; phase 8's one step for the
     ring);
     ``wrapper_ms``, the same call through its wrapper; ``plain_ms``; the
-    POPC form's bound for the same work and the card's roofline
-    (``roofline_ms``, ``roofline_by``, ``roofline_form``); ``library_ms``,
+    bound of the form each kernel runs for the same work (``form``: the
+    tile sweep the simplex int8 tensor-core form, the ring step the POPC
+    form) and the card's roofline (``roofline_ms``, ``roofline_by``,
+    ``roofline_form``); ``library_ms``,
     ``library_form`` and ``library_matmul_ms``: the same function by the
     one-hot matrix-product route (the reference's ``impl="mxu"``, bf16
     products as the port takes it on a card; phase 32, at dense_1M and at
@@ -248,15 +254,19 @@ Phases, each printing its own line; any failure exits non-zero:
     then with guard rows and sentinel words on the card.  Any error found
     fails the phase.  Where the tool cannot attach to the card, a line
     says "NOT SHOWN": zero errors under those tools is not shown, and
-    only the guard checks ran.  Then the stand-in for racecheck: every
-    case launched 20 times with the first capacity forced to 16 pairs
-    (each call overflows and relaunches), each result bit for bit equal
-    to the first and to the plain version.  The kernels line gives each
-    kernel's ``sanitizer`` statuses, ``zero_errors_shown``, guarded cases
-    and repeat cases.
+    only the guard checks ran (K1's through an encoded table whose rows
+    past N are poisoned guard rows).  Then the stand-in for racecheck:
+    every case launched 20 times with the first capacity forced to 16
+    pairs (each call overflows and relaunches), each result bit for bit
+    equal to the first and to the plain version; K1 also at a busy shape
+    where every persistent CTA's rings of stages and panels wrap.  The
+    kernels line gives each kernel's ``sanitizer`` statuses,
+    ``zero_errors_shown``, guarded cases and repeat cases.
 32. The ``impl=`` choice: the one-hot matrix-product route
     (``ops/hamming.py::onehot_tile_pairs``, bf16 products) against K1 and
-    the plain version at dense_1M and sweep_1M, and ``hamming_block_mxu``
+    the plain version at dense_1M and sweep_1M, against K1 at sweep_10M,
+    dense_L33_m2 and ids_shard0 (the route whole only), and
+    ``hamming_block_mxu``
     against K2 and its plain version at ring_1M_d4's one step (tolerance
     0); the route whole (CUDA-event means after a warm-up, and its device
     busy time from ``torch.profiler``) and its products alone, in bf16 and
@@ -299,6 +309,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
+sys.path.insert(0, REPO)
+# The timing loop and the tile sweep's pair count, shared with the tool
+# that times K1 beside an earlier build of it.
+from humid_tpu_torch.tools.k1_compare import (  # noqa: E402
+    sweep_evaluations, time_cuda)
 
 
 class SmokeFailure(Exception):
@@ -340,33 +355,29 @@ def inner_loop_popc(sass: str, kernel: str) -> dict:
     return out
 
 
-def time_cuda(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up
-    (CUDA events around the whole loop)."""
-    import torch
+def k1_products(sass: str, kernel: str) -> dict:
+    """The tile sweep's tensor-core products in the w = 2 and w = 3
+    instances of ``kernel``, from its disassembly: the IGMMA instructions
+    (the int8 warpgroup MMA), their mnemonics, and the k-steps one product
+    of an encoded word takes (``table_width(w) / 32``); also the POPC
+    count (the POPC form's, which K1 no longer has)."""
+    import re
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    from humid_tpu_torch.ops.cuda_hamming import table_width
 
-
-def sweep_evaluations(n_rows, tile_pairs, tile, part_stride,
-                      part_valid) -> int:
-    """Word pairs a tile-pair list has to evaluate: valid rows x valid
-    columns per tile pair, the strict upper triangle on a diagonal one."""
-    g = np.arange(n_rows)
-    valid = np.bincount(g[g % part_stride < part_valid] // tile,
-                        minlength=-(-n_rows // tile)).astype(np.int64)
-    vi, vj = valid[tile_pairs[:, 0]], valid[tile_pairs[:, 1]]
-    diag = tile_pairs[:, 0] == tile_pairs[:, 1]
-    return int(np.where(diag, vi * (vi - 1) // 2, vi * vj).sum())
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0]
+        w = next((w for w in (2, 3) if f"{kernel}ILi{w}EE" in name), None)
+        if w is None:
+            continue
+        ops = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.x]+)", fn)
+        mma = [op for op in ops if op.startswith("IGMMA")]
+        out[f"w{w}"] = {"igmma": len(mma), "mnemonics": sorted(set(mma)),
+                        "k_steps": table_width(w) // 32,
+                        "POPC": ops.count("POPC")}
+    return out
 
 
 def bound_ms(evaluations: int, w: int, n_bytes: int, card: dict) -> dict:
@@ -400,33 +411,39 @@ def bound_ms(evaluations: int, w: int, n_bytes: int, card: dict) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-#: Peak int8 tensor-core rate of one H100 SXM, dense (NVIDIA's data sheet,
-#: at its 700 W limit), in operations a second.
-INT8_OPS_PER_S = 1.979e15
-
-
 def roofline(evaluations: int, w: int, n_bytes: int, card: dict) -> dict:
     """The card's least time for ``evaluations`` word pairs of ``w``
-    lanes: the lesser of two formulations' bounds, each the larger of its
-    bytes over the memory rate and its operations over the rate of the
-    unit that does them:
+    lanes: the least of three formulations' bounds, each the larger of
+    its bytes over the memory rate and its operations over the rate of
+    the unit that does them:
 
     * the exact-integer POPC form, as ``bound_ms`` computes it;
     * the one-hot int8 tensor-core form (the TPU kernel's MXU matmul):
       each base a one-hot of 4, so a pair costs 4 x 16w int8
-      multiply-adds, 2 operations each, at ``INT8_OPS_PER_S``.
+      multiply-adds, 2 operations each, at 1,979 TOP/s
+      (``tools/k1_compare.py::tensor_core_bound``);
+    * the simplex int8 tensor-core form (K1's: 3 channels of +-1 a base),
+      3 x 16w multiply-adds a pair.
 
-    ``roofline_form`` names the form that sets it ("popc" or
-    "int8_mma")."""
-    popc = bound_ms(evaluations, w, n_bytes, card)
-    bytes_ms = n_bytes / 3.35e12 * 1e3
-    mma_ms = evaluations * 4 * 16 * w * 2 / INT8_OPS_PER_S * 1e3
-    mma = {"bound_ms": max(mma_ms, bytes_ms),
-           "bound_by": "operations" if mma_ms >= bytes_ms else "bytes"}
-    form, best = min((("popc", popc), ("int8_mma", mma)),
-                     key=lambda f: f[1]["bound_ms"])
-    return {"roofline_ms": best["bound_ms"], "roofline_by": best["bound_by"],
-            "roofline_form": form}
+    ``roofline_form`` names the form that sets it ("popc", "int8_onehot"
+    or "int8_simplex")."""
+    from humid_tpu_torch.tools.k1_compare import tensor_core_bound
+
+    forms = {"popc": bound_ms(evaluations, w, n_bytes, card),
+             "int8_onehot": tensor_core_bound(evaluations, w, n_bytes, 4),
+             "int8_simplex": tensor_core_bound(evaluations, w, n_bytes, 3)}
+    form = min(forms, key=lambda f: forms[f]["bound_ms"])
+    return {"roofline_ms": forms[form]["bound_ms"],
+            "roofline_by": forms[form]["bound_by"], "roofline_form": form}
+
+
+def k1_bound(evaluations: int, w: int, n_bytes: int) -> dict:
+    """The bound of the form K1 runs: the simplex int8 tensor-core form
+    (``roofline``), named in ``form``."""
+    from humid_tpu_torch.tools.k1_compare import tensor_core_bound
+
+    return {**tensor_core_bound(evaluations, w, n_bytes, 3),
+            "form": "int8_simplex"}
 
 
 def within_bound(name: str, kernel_ms: float, bound: dict,
@@ -442,8 +459,9 @@ def within_bound(name: str, kernel_ms: float, bound: dict,
 
 def sweep_kernel_ms(lanes, tp, kw, n_pairs: int, reps: int) -> float:
     """The tile sweep's kernel alone: the launches of one call (chunked as
-    the wrapper chunks) into a buffer allocated beforehand, between two
-    CUDA events.  The counter must end at ``n_pairs``."""
+    the wrapper chunks, over an encoded table built beforehand) into a
+    buffer allocated beforehand, between two CUDA events.  The counter
+    must end at ``n_pairs``."""
     import torch
 
     from humid_tpu_torch.ops import cuda_hamming as K
@@ -451,17 +469,30 @@ def sweep_kernel_ms(lanes, tp, kw, n_pairs: int, reps: int) -> float:
     keys = torch.empty(max(n_pairs, 1), dtype=torch.int64,
                        device=lanes.device)
     counter = torch.zeros(2, dtype=torch.int64, device=lanes.device)
+    table = K.encode_table(lanes)  # the wrapper's pre-pass, not timed
 
     def launches():
         counter.zero_()
         for lo in range(0, len(tp), K.CHUNK_PAIRS):
-            K._launch(lanes, tp[lo:lo + K.CHUNK_PAIRS], keys, counter, **kw)
+            K._launch(lanes, tp[lo:lo + K.CHUNK_PAIRS], keys, counter,
+                      table=table, **kw)
 
     ms = time_cuda(launches, reps)
     if counter.tolist() != [n_pairs, 0]:
         raise SmokeFailure(f"the timed launches left the counter at "
                            f"{counter.tolist()}, expected [{n_pairs}, 0]")
     return ms
+
+
+def k1_bytes(lanes, tp, n_pairs: int, ids=None) -> int:
+    """Bytes K1 must move: its encoded table read once (rows padded to
+    ``TABLE_ROWS``), the tile pairs and run ids read, the keys written."""
+    from humid_tpu_torch.ops import cuda_hamming as K
+
+    n, w = lanes.shape
+    rows = max(-(-n // K.TABLE_ROWS), 1) * K.TABLE_ROWS
+    return (rows * K.table_width(w) + tp.numel() * 4 + 8 * n_pairs
+            + (0 if ids is None else ids.numel() * 4))
 
 
 def kernel_vs_plain(name, rows, tile_pairs, *, tile, u_pad, u, max_dist,
@@ -498,8 +529,8 @@ def kernel_vs_plain(name, rows, tile_pairs, *, tile, u_pad, u, max_dist,
     plain_ms = time_cuda(lambda: K.hamming_tile_pairs_plain(lanes, tp, **kw),
                          plain_reps)
     evaluations = sweep_evaluations(len(rows), tile_pairs, tile, u_pad, u)
-    n_bytes = lanes.numel() * 4 + tp.numel() * 4 + 8 * len(ka)
-    bound = bound_ms(evaluations, int(lanes.shape[1]), n_bytes, card)
+    n_bytes = k1_bytes(lanes, tp, len(ka))
+    bound = k1_bound(evaluations, int(lanes.shape[1]), n_bytes)
     roof = roofline(evaluations, int(lanes.shape[1]), n_bytes, card)
     out = {"rows": int(lanes.shape[0]), "w": int(lanes.shape[1]),
            "tile_pairs": int(len(tp)), "pairs": int(len(ka)),
@@ -762,9 +793,8 @@ def ids_phase(device, uniq, card) -> None:
     evaluations = sweep_evaluations(
         len(prep["rows"][0]), prep["tile_pairs"][0], prep["tile"],
         prep["r_pad"], prep["urows"][0])
-    n_bytes = (lanes.numel() * 4 + tp.numel() * 4 + ids.numel() * 4
-               + 8 * len(got[0]))
-    bound = bound_ms(evaluations, int(lanes.shape[1]), n_bytes, card)
+    n_bytes = k1_bytes(lanes, tp, len(got[0]), ids)
+    bound = k1_bound(evaluations, int(lanes.shape[1]), n_bytes)
     share = within_bound("phase 6", kernel_ms, bound)
     roof = roofline(evaluations, int(lanes.shape[1]), n_bytes, card)
     roof_share = within_bound("phase 6", kernel_ms, roof, "roofline_ms")
@@ -772,7 +802,8 @@ def ids_phase(device, uniq, card) -> None:
         f"4: {prep['urows'][0]} rows, tile {prep['tile']}, {len(tp)} tile "
         f"pairs, {len(got[0])} pairs ({len(free[0])} without the mask), "
         f"{evaluations} evaluations; kernel alone {kernel_ms:.4f} ms, bound "
-        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; share "
+        f"{bound['bound_ms']:.4f} ms ({bound['form']}, {bound['bound_by']}; "
+        f"share "
         f"{share:.3f}); roofline {roof['roofline_ms']:.4f} ms "
         f"({roof['roofline_form']}, {roof['roofline_by']}; share "
         f"{roof_share:.3f}); wrapper {ms:.3f} ms with ids, {free_ms:.3f} ms "
@@ -2913,13 +2944,15 @@ def onehot_products_ms(blocks) -> dict:
 
 
 def onehot_sweep_case(name, rows, tile_pairs, *, tile, u_pad, u, device,
-                      k1: dict | None, with_plain: bool) -> dict:
+                      k1: dict | None, with_plain: bool, max_dist: int = 1,
+                      word_length: int = 24, ids=None,
+                      products: bool = True) -> dict:
     """One sweep shape of phase 32: K1 (the wrapper) against the one-hot
     route (bf16 products on the card), and against the plain version,
     tolerance 0; the route whole timed, its device busy time from
     ``torch.profiler`` (``busy_ms``: the union of its kernels' intervals),
-    and its products alone (:func:`onehot_products_ms`); K1's times beside
-    them from phase 3 (``k1``) or measured here."""
+    and (``products``) its products alone (:func:`onehot_products_ms`);
+    K1's times beside them from phase 3 (``k1``) or measured here."""
     import torch
 
     from humid_tpu_torch.ops import cuda_hamming as K
@@ -2927,7 +2960,10 @@ def onehot_sweep_case(name, rows, tile_pairs, *, tile, u_pad, u, device,
     from humid_tpu_torch.ops.neighbors import sweep_tensors
 
     lanes, tp = sweep_tensors(rows, tile_pairs, device)
-    kw = dict(tile=tile, part_stride=u_pad, part_valid=u, max_dist=1)
+    if ids is not None:
+        ids = torch.from_numpy(ids).to(device)
+    kw = dict(tile=tile, part_stride=u_pad, part_valid=u, max_dist=max_dist,
+              ids=ids)
     want = K.hamming_tile_pairs(lanes, tp, **kw)
     if with_plain:
         _equal_pairs(f"phase 32 {name}: K1 vs plain", want,
@@ -2938,16 +2974,19 @@ def onehot_sweep_case(name, rows, tile_pairs, *, tile, u_pad, u, device,
                lanes, tp, kw, len(want[0]), 20),
            "k1_wrapper_ms": k1["ms"] if k1 else time_cuda(
                lambda: K.hamming_tile_pairs(lanes, tp, **kw), 5)}
-    route = lambda: H.onehot_tile_pairs(lanes, tp, word_length=24, **kw)
+    route = lambda: H.onehot_tile_pairs(lanes, tp, word_length=word_length,
+                                        **kw)
     _equal_pairs(f"phase 32 {name}: one-hot vs K1", route(), want)
     out["route_ms"] = time_cuda(route, 3)
     trace = kernels_launched(route, f"onehot_{name}")
     out.update(route_kernels=trace["kernels"], route_busy_ms=trace["busy_ms"],
                route_busy_share=trace["busy_ms"] / out["route_ms"])
-    oh = H.onehot_bases(lanes, 24, dtype=H.onehot_dtype(lanes.device))
-    blocks = list(H.onehot_tile_blocks(oh, tile_pairs, tile))
-    out["matmul"] = onehot_products_ms(blocks)
-    del blocks, oh
+    if products:
+        oh = H.onehot_bases(lanes, word_length,
+                            dtype=H.onehot_dtype(lanes.device))
+        blocks = list(H.onehot_tile_blocks(oh, tile_pairs, tile))
+        out["matmul"] = onehot_products_ms(blocks)
+        del blocks, oh
     torch.cuda.empty_cache()
     say(f"phase 32 {name}: one-hot route == K1"
         f"{' == plain' if with_plain else ''} (tolerance 0); "
@@ -2971,6 +3010,7 @@ def onehot_phase(device, tables, sweeps, e2e) -> dict:
     from humid_tpu_torch.ops.neighbors import bucketed_inputs, dense_inputs
     from humid_tpu_torch.parallel import cuda_ring as R
     from humid_tpu_torch.parallel.mesh import pad_to_shards
+    from humid_tpu_torch.parallel.neighbors import bucketed_shard_inputs
 
     uniq = tables["bucketed_1M_reads"]
     u = len(uniq)
@@ -2983,6 +3023,26 @@ def onehot_phase(device, tables, sweeps, e2e) -> dict:
     out["sweep_1M"] = onehot_sweep_case(
         "sweep_1M", rows, tps, tile=b, u_pad=u_pad, u=u, device=device,
         k1=sweeps["bucketed_1M_reads"], with_plain=True)
+    # The library cells of K1's other shapes: the route whole, K1 beside
+    # it from phase 3 (phase 6's shape: measured here).
+    big = tables["bucketed_10M_reads"]
+    rows, tps, b, u_pad, _ = bucketed_inputs(big, 1, 24, 2048)
+    out["sweep_10M"] = onehot_sweep_case(
+        "sweep_10M", rows, tps, tile=b, u_pad=u_pad, u=len(big),
+        device=device, k1=sweeps["bucketed_10M_reads"], with_plain=False,
+        products=False)
+    l33 = tables["dense_L33_m2"]
+    rows, tps, b, u_pad = dense_inputs(l33, 2048)
+    out["dense_L33_m2"] = onehot_sweep_case(
+        "dense_L33_m2", rows, tps, tile=b, u_pad=u_pad, u=len(l33),
+        device=device, k1=sweeps["dense_L33_m2"], with_plain=False,
+        max_dist=2, word_length=33, products=False)
+    prep = bucketed_shard_inputs(uniq, 1, 24, 4)
+    out["ids_shard0"] = onehot_sweep_case(
+        "ids_shard0", prep["rows"][0], prep["tile_pairs"][0],
+        tile=prep["tile"], u_pad=prep["r_pad"], u=prep["urows"][0],
+        device=device, k1=None, with_plain=False, ids=prep["ids"][0],
+        products=False)
 
     # ring_1M_d4's one step (phase 8's): shard 0's block against block 1.
     d = 4
@@ -3177,7 +3237,6 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     say(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}")
-    sys.path.insert(0, REPO)
     from humid_tpu_torch import _build
     from humid_tpu_torch.tools.ring_profile import sample_table
 
@@ -3209,14 +3268,24 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     for lib in libs:
         say(lib.with_suffix(".log").read_text().strip())
-    for name in kernels:
-        loop = inner_loop_popc(_build.disassemble(name), f"{name}_kernel")
-        say(f"phase 2 {name} inner loop (SASS): {json.dumps(loop)}")
-        for w in (2, 3):
-            if loop[f"w{w}"]["popc_per_column"] != -(-w // 2):
-                raise SmokeFailure(
-                    f"{name}, w = {w}: the inner loop does not spend "
-                    f"ceil(w / 2) POPC a column: {loop}")
+    mma = k1_products(_build.disassemble("hamming_sweep"),
+                      "hamming_sweep_kernel")
+    say(f"phase 2 hamming_sweep products (SASS): {json.dumps(mma)}")
+    for w in (2, 3):
+        got = mma.get(f"w{w}", {})
+        if (got.get("igmma", 0) < got.get("k_steps", 1)
+                or not all(m.endswith(".S8.S8") for m in got["mnemonics"])):
+            raise SmokeFailure(
+                f"hamming_sweep, w = {w}: the products are not on the int8 "
+                f"warpgroup MMA (IGMMA ... S8.S8, one per k-step): {mma}")
+    loop = inner_loop_popc(_build.disassemble("ring_sweep"),
+                           "ring_sweep_kernel")
+    say(f"phase 2 ring_sweep inner loop (SASS): {json.dumps(loop)}")
+    for w in (2, 3):
+        if loop[f"w{w}"]["popc_per_column"] != -(-w // 2):
+            raise SmokeFailure(
+                f"ring_sweep, w = {w}: the inner loop does not spend "
+                f"ceil(w / 2) POPC a column: {loop}")
 
     device = torch.device("cuda")
     if sys.argv[1:] == ["--mesh"]:
@@ -3301,10 +3370,12 @@ def main() -> int:
         # wrapper (allocation, read-back and sort included).
         "ms": main_shape["kernel_ms"], "wrapper_ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
+        # The bound of the form K1 runs (the simplex int8 tensor-core
+        # form, ``form``).
         "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        # The card's least time: the lesser of the POPC form's bound and
-        # the one-hot int8 tensor-core form's (``roofline``).
+        "bound_by": main_shape["bound_by"], "form": main_shape["form"],
+        # The card's least time: the least of the POPC, one-hot and
+        # simplex forms' bounds (``roofline``).
         "roofline_ms": main_shape["roofline_ms"],
         "roofline_by": main_shape["roofline_by"],
         "roofline_form": main_shape["roofline_form"],
@@ -3329,7 +3400,7 @@ def main() -> int:
         "ms": ring["step_kernel_ms"], "wrapper_ms": ring["step_ms"],
         "plain_ms": ring["step_plain_ms"],
         "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
-        "roofline_ms": ring["roofline_ms"],
+        "form": "popc", "roofline_ms": ring["roofline_ms"],
         "roofline_by": ring["roofline_by"],
         "roofline_form": ring["roofline_form"],
         **library_entry(onehot["ring_step"]),

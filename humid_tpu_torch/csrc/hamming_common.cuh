@@ -1,8 +1,8 @@
-// Device code shared by the Hamming kernels (hamming_sweep.cu,
-// ring_sweep.cu): the bit-plane form of 2-bit packed words, the distance
-// of two words in that form, the inner loop that holds a thread's row
-// against a chunk of columns in shared memory, and the block's buffer of
-// matching pairs.
+// Device code shared by the Hamming kernels: the bit-plane form of 2-bit
+// packed words, the distance of two words in that form and the inner loop
+// that holds a thread's row against a chunk of columns in shared memory
+// (the ring step, ring_sweep.cu), and the buffer of matching pairs (both
+// kernels; the tile sweep, hamming_sweep.cu, keeps one per warpgroup).
 //
 // Bit planes.  A word arrives as W uint32 lanes of 16 bases, 2 bits a
 // base.  Counting differing bases on that form costs one POPC per lane
@@ -166,21 +166,34 @@ struct HitBuffer {
     }
   }
 
-  // All threads of the block, between two phases of adds.  Starts with a
-  // barrier (every add of the phase is in) and, when it has written keys
-  // out, ends with one; the buffer is empty for adds that follow the
-  // caller's next barrier.
+  // The threads that add, between two phases of adds: thread `tid` of
+  // `nthreads`, where sync() is a barrier over exactly those threads.
+  // Starts with a barrier (every add of the phase is in); hands the keys
+  // on only when there are at least `min_keys` of them (a caller that
+  // flushes often spares the global atomic until the buffer fills), and
+  // then ends with a barrier, the buffer empty for the adds that follow.
+  template <class Sync>
+  __device__ __forceinline__ void flush(unsigned long long* counter,
+                                        long long cap, long long* out_keys,
+                                        unsigned tid, unsigned nthreads,
+                                        Sync sync, unsigned min_keys = 1u) {
+    sync();
+    const unsigned m = min(n, (unsigned)HIT_CAP);
+    if (m < max(min_keys, 1u)) return;  // uniform over the threads
+    if (tid == 0) base = atomicAdd(counter, (unsigned long long)m);
+    sync();
+    // Every thread has read n above; no add runs before the last barrier.
+    if (tid == 0) n = 0u;
+    for (unsigned i = tid; i < m; i += nthreads)
+      if (base + i < (unsigned long long)cap) out_keys[base + i] = keys[i];
+    sync();
+  }
+
+  // The same over all threads of the block.
   __device__ __forceinline__ void flush(unsigned long long* counter,
                                         long long cap, long long* out_keys) {
-    __syncthreads();
-    const unsigned m = min(n, (unsigned)HIT_CAP);
-    if (m == 0u) return;  // uniform over the block
-    if (threadIdx.x == 0) base = atomicAdd(counter, (unsigned long long)m);
-    __syncthreads();
-    for (unsigned i = threadIdx.x; i < m; i += blockDim.x)
-      if (base + i < (unsigned long long)cap) out_keys[base + i] = keys[i];
-    __syncthreads();
-    if (threadIdx.x == 0) n = 0u;
+    flush(counter, cap, out_keys, threadIdx.x, blockDim.x,
+          [] { __syncthreads(); });
   }
 };
 

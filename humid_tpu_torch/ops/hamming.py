@@ -148,23 +148,33 @@ def _as_lanes(words, device) -> torch.Tensor:
     return lanes_u32(words)
 
 
+def base_codes(lanes: torch.Tensor) -> torch.Tensor:
+    """[N, w] lanes (int32 bit views or int64 uint32 values) -> [N, 16 w]
+    base codes 0-3 (A C G T) of the lanes' integer type, base p of lane l
+    in column 16 l + p: all 16 slots of every lane, the padding slots past
+    a word's length included (code 0 in every word).  An int32 view is
+    shifted as it is (the mask keeps the two bits an arithmetic shift
+    leaves right), at half the bytes of int64."""
+    v = lanes if lanes.dtype == torch.int32 else lanes_u32(lanes)
+    n, w = v.shape
+    shifts = 2 * (15 - torch.arange(16, dtype=v.dtype, device=v.device))
+    return ((v[:, :, None] >> shifts) & 3).reshape(n, 16 * w)
+
+
 def onehot_bases(lanes: torch.Tensor, word_length: int, *,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[N, w] lanes -> [N, D] one-hot encoding of the first
     ``word_length`` bases (4 columns a base, in code order A C G T), D =
     4L zero-padded up to a multiple of 32 (the padding adds nothing to a
     product)."""
-    v = lanes_u32(lanes)
-    n, w = v.shape
+    n, w = lanes.shape
     if not 1 <= word_length <= 16 * w:
         raise ValueError(f"word_length {word_length} outside [1, {16 * w}] "
                          f"for {w} lanes")
-    shifts = 2 * (15 - torch.arange(16, device=v.device))
-    codes = ((v[:, :, None] >> shifts) & 3).reshape(n, 16 * w)
-    codes = codes[:, :word_length]
-    oh = codes[:, :, None] == torch.arange(4, device=v.device)
+    codes = base_codes(lanes)[:, :word_length]
+    oh = codes[:, :, None] == torch.arange(4, device=lanes.device)
     out = torch.zeros((n, -(-4 * word_length // 32) * 32), dtype=dtype,
-                      device=v.device)
+                      device=lanes.device)
     out[:, :4 * word_length] = oh.reshape(n, 4 * word_length)
     return out
 

@@ -50,7 +50,9 @@ read outside the table that changes nothing, and races in shared memory
 (racecheck's domain).  For races, :func:`repeat_cases` stands in: every
 case launched REPEATS (20) times with the first capacity forced to 16
 pairs (each call overflows and relaunches), each result bit for bit
-equal to the first run's and the plain version's.
+equal to the first run's and the plain version's; on a card K1 also
+takes :func:`k1_busy_case`, where every persistent CTA walks several
+units and its rings of stages and panels wrap.
 
 The last line is one JSON summary; the exit code is 1 if any check found
 an error or a mismatch (a sanitizer that cannot attach is not an error,
@@ -333,6 +335,19 @@ def k1_cases() -> list[dict]:
     return cases
 
 
+def k1_busy_case() -> dict:
+    """A K1 case with many units in flight, for the repeat check on a
+    card: 48 tiles of 256 rows (w = 2), every upper tile pair (1,176,
+    every fifth switched off), so that each of an H100's 132 persistent
+    CTAs takes several units in turn and its ring of column stages and
+    its two row panels wrap several times (the mbarrier phases)."""
+    rng = np.random.default_rng(4096)
+    n = 48 * 256
+    return dict(name="busy_ring", rows=_words(rng, n, 24, 1500, 1),
+                tile_pairs=_upper_tile_pairs(48), tile=256, part_stride=n,
+                part_valid=n - 100, max_dist=1, ids=None)
+
+
 def k2_cases() -> list[dict]:
     """The ring step's small cases: (name, rows, cols [b, w] uint32,
     row_base, col_base, u, max_dist, upper_only)."""
@@ -428,7 +443,11 @@ def _check_guards(name, keys, counter, words, cap, n_want,
 def guarded_k1(c: dict, device) -> int:
     """One K1 case through a direct launch with poisoned padding and guard
     rows, guarded buffers, at the exact capacity and at half of it;
-    returns the pair count."""
+    returns the pair count.  The kernel reads the encoded table, so that
+    is built from the whole store, guard rows included, and the launch
+    gets the view of its rows: the rows past N up to the table's row
+    multiple, which the wrapper's own table holds as zeros, are poisoned
+    guard rows here."""
     import torch
 
     from ..ops import cuda_hamming as H
@@ -442,12 +461,14 @@ def guarded_k1(c: dict, device) -> int:
     a, b = H.hamming_tile_pairs_plain(_t(rows, "cpu"), tp, ids=ids_cpu,
                                       **_k1_kw(c))
     want = np.sort((a * n + b).numpy())
-    _, lanes = _poisoned(rows, bad, device)
+    store, lanes = _poisoned(rows, bad, device)
+    table_rows = -(-n // H.TABLE_ROWS) * H.TABLE_ROWS
+    table = H.encode_table(store)[GUARD_ROWS:GUARD_ROWS + table_rows]
     ids = None if ids_cpu is None else ids_cpu.to(device)
     for cap in (len(want), len(want) // 2):
         keys, counter = _guarded_buffers(cap, 2, device)
         H._launch(lanes, tp.to(device), keys[:cap], counter[:2], ids=ids,
-                  **_k1_kw(c))
+                  table=table, **_k1_kw(c))
         torch.cuda.synchronize(device)
         if counter[1].item():
             raise AssertionError(f"K1 {c['name']}: bad-tile-pair flag set")
@@ -551,10 +572,12 @@ def repeat_cases(device, repeats: int = REPEATS) -> dict:
     kernel case launched ``repeats`` times on the same input with the
     first capacity forced to 16 pairs (so that each call overflows its
     buffer, counts past it and relaunches), each result compared bit for
-    bit with the first run's and with the plain version.  A race on the
-    shared-memory hit buffer, its flush or the global counter that
-    changed a pair or a count would show as a difference between runs.
-    Returns launches and cases per kernel; raises on any difference."""
+    bit with the first run's and with the plain version; on a card K1
+    also takes :func:`k1_busy_case`.  A race on the shared-memory hit
+    buffer, its flush, the global counter, or K1's rings of TMA-filled
+    stages and panels and their mbarriers that changed a pair or a count
+    would show as a difference between runs.  Returns launches and cases
+    per kernel; raises on any difference."""
     import torch
 
     from ..ops import cuda_hamming as H
@@ -576,7 +599,8 @@ def repeat_cases(device, repeats: int = REPEATS) -> dict:
         counter["cases"] += 1
         counter["launches"] += H.LAUNCHES + R.LAUNCHES - before
 
-    for c in k1_cases():
+    busy = [k1_busy_case()] if device.type == "cuda" else []
+    for c in k1_cases() + busy:
         tp = torch.from_numpy(c["tile_pairs"])
         ids = None if c["ids"] is None else torch.from_numpy(c["ids"])
         want = H.hamming_tile_pairs_plain(_t(c["rows"], "cpu"), tp, ids=ids,

@@ -12,7 +12,9 @@ substitution, unique and sorted, then a sorted uniform subsample of u)
 gives the table, and each engine runs ``--runs`` times; one JSON line per
 (size, engine) with the reference's keys (``u``, ``engine``, ``backend``,
 ``best_s``, ``pairs``, ``ns_per_unique``) plus ``card`` (nvidia-smi's
-name and power limit; null off a card).
+name and power limit; null off a card) and, for a table engine on a
+card, ``peak_device_bytes`` (``torch.cuda.max_memory_allocated`` over
+its runs).
 
 * Table engines, on the table (``find_neighbor_pairs`` strategies):
   host ``runs``, ``bucketed`` and ``dense`` (both the K1 tile sweep on a
@@ -44,6 +46,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from .. import words as W
 from .._device import resolve_device
@@ -140,6 +143,8 @@ def measure(u_req: int, engines, *, word_length: int = 24, m: int = 1,
            "n_reads": len(reads), "generator_s": time.perf_counter() - t0}
     lines, pairs = [], {}
     for eng in (e for e in engines if e in TABLE_ENGINES):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         best, pairs[eng] = _best(lambda: find_neighbor_pairs(
             table, m, strategy=eng, word_length=word_length, device=dev),
             runs)
@@ -147,6 +152,9 @@ def measure(u_req: int, engines, *, word_length: int = 24, m: int = 1,
                       "best_s": best, "pairs": len(pairs[eng][0]),
                       "ns_per_unique": best / len(table) * 1e9,
                       "card": card})
+        if dev.type == "cuda":  # the engine's runs' peak on the card
+            lines[-1]["peak_device_bytes"] = torch.cuda.max_memory_allocated(
+                dev)
 
     def phasewise():
         from ..ops.runs_device import runs_device_pairs

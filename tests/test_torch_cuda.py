@@ -302,6 +302,88 @@ def test_kernel_max_dist_beyond_word_length(cuda_device):
     np.testing.assert_array_equal(b.cpu().numpy(), jj)
 
 
+@pytest.mark.parametrize("length", [16, 40, 104, 136, 248])  # w = 1, 3, 7, 9, 16
+def test_kernel_odd_and_wide_lane_counts(length, cuda_device):
+    """The encoded table's K is 48 w rounded up to a multiple of 32: for
+    odd w the last k-step is part zero padding, and past w = 4 the
+    kernel's products and stages are narrower.  Kernel == plain."""
+    rng = np.random.default_rng(600 + length)
+    rows = _words(rng, 3000, length, pool=150)
+    lanes, tp = _tensors(rows, _upper_pairs(6), cuda_device)
+    kw = dict(tile=512, part_stride=3072, part_valid=2900, max_dist=3)
+    pa, pb = K.hamming_tile_pairs_plain(lanes, tp, **kw)
+    assert len(pa) > 0
+    a, b = K.hamming_tile_pairs(lanes, tp, **kw)
+    assert torch.equal(a, pa) and torch.equal(b, pb)
+
+
+@pytest.mark.parametrize("tile", [37, 100, 200, 1000])
+def test_kernel_tile_not_a_multiple_of_64(tile, cuda_device):
+    """Tiles that are no multiple of the 64-row products: a tile's rows
+    end inside a product's rows and a stage's columns, and the next
+    tile's rows there must not pair.  Prefix and indexed validity."""
+    rng = np.random.default_rng(tile)
+    rows = _words(rng, 3000, 24, pool=80)
+    t = -(-3000 // tile)
+    lanes, tp = _tensors(rows, _upper_pairs(t), cuda_device)
+    for stride, valid in ((3000, 2950), (tile * 3, tile * 2 + 5)):
+        kw = dict(tile=tile, part_stride=stride, part_valid=valid,
+                  max_dist=1)
+        pa, pb = K.hamming_tile_pairs_plain(lanes, tp, **kw)
+        assert len(pa) > 0
+        a, b = K.hamming_tile_pairs(lanes, tp, **kw)
+        assert torch.equal(a, pa) and torch.equal(b, pb)
+
+
+@pytest.mark.parametrize("tile", [2048, 1000])
+def test_kernel_straddles_the_diagonal(tile, cuda_device):
+    """Diagonal tile pairs only, with equal words spread over the whole
+    tile: every product and stage that the diagonal crosses holds pairs
+    on both sides of it (and each row against itself), of which only
+    c > r may come out."""
+    rng = np.random.default_rng(77 + tile)
+    rows = _words(rng, 2 * tile, 24, pool=60)
+    lanes, tp = _tensors(rows, np.array([(0, 0), (1, 1)]), cuda_device)
+    kw = dict(tile=tile, part_stride=2 * tile, part_valid=2 * tile - 3,
+              max_dist=1)
+    pa, pb = K.hamming_tile_pairs_plain(lanes, tp, **kw)
+    assert len(pa) > 1000 and bool((pb > pa).all())
+    a, b = K.hamming_tile_pairs(lanes, tp, **kw)
+    assert torch.equal(a, pa) and torch.equal(b, pb)
+
+
+def test_kernel_max_dist_minus_one_and_whole_word(cuda_device):
+    """max_dist -1 (a direct launch: the wrapper takes no negative
+    distance) passes nothing; 16 w and beyond pass every valid pair."""
+    rows = _words(np.random.default_rng(5), 1500, 32)  # w = 2
+    lanes, tp = _tensors(rows, _upper_pairs(3), cuda_device)
+    kw = dict(tile=512, part_stride=1536, part_valid=1500)
+    keys = torch.empty(16, dtype=torch.int64, device=cuda_device)
+    counter = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    K._launch(lanes, tp, keys, counter, max_dist=-1, **kw)
+    assert counter.tolist() == [0, 0]
+    ii, jj = np.triu_indices(1500, k=1)
+    for max_dist in (32, 37):
+        a, b = K.hamming_tile_pairs(lanes, tp, max_dist=max_dist, **kw)
+        np.testing.assert_array_equal(a.cpu().numpy(), ii)
+        np.testing.assert_array_equal(b.cpu().numpy(), jj)
+
+
+def test_kernel_all_equal_words_overflow_the_hit_buffer(cuda_device):
+    """4,096 equal words at max_dist 0: every pair passes, far more per
+    product than a warpgroup's shared-memory buffer holds (1,024), so
+    keys go out one by one past it; with a small first capacity the
+    count runs past the key buffer too and the wrapper relaunches."""
+    rows = np.repeat(_words(np.random.default_rng(8), 1, 24), 4096, axis=0)
+    lanes, tp = _tensors(rows, _upper_pairs(2), cuda_device)
+    kw = dict(tile=2048, part_stride=4096, part_valid=4096, max_dist=0)
+    ii, jj = np.triu_indices(4096, k=1)
+    for cap_start in (None, 1000):
+        a, b = K.hamming_tile_pairs(lanes, tp, cap_start=cap_start, **kw)
+        np.testing.assert_array_equal(a.cpu().numpy(), ii)
+        np.testing.assert_array_equal(b.cpu().numpy(), jj)
+
+
 def test_kernel_rejects_too_many_lanes(cuda_device):
     rows = np.zeros((256, K.MAX_LANES + 1), np.uint32)
     lanes, tp = _tensors(rows, _upper_pairs(1), cuda_device)
