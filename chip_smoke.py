@@ -8,12 +8,14 @@ card and nvcc:
 Phases, each printing its own line; any failure exits non-zero:
 
 1. CUDA is present; the card's name and power limit (nvidia-smi).
-2. Both kernels (humid_tpu_torch/csrc/hamming_sweep.cu, ring_sweep.cu)
-   are built from source with nvcc, one process each, started together
-   (seconds; ptxas reports printed).  Their disassembly must show, at
-   w = 2 and w = 3, the tile sweep's products on the int8 warpgroup MMA
-   (``IGMMA...S8.S8``, one per k-step of the encoded word) and the ring
-   step's inner loop spending ceil(w / 2) POPC per column.
+2. The three kernels (humid_tpu_torch/csrc/hamming_sweep.cu,
+   ring_sweep.cu, both on the pipeline of tc_sweep.cuh, and their
+   encoder simplex_encode.cu) are built from source with nvcc, one
+   process each, started together (seconds; ptxas reports printed).  The
+   disassembly of both Hamming kernels must show, at w = 2 and w = 3 (and
+   in K1's 128-column instance for short lists at w = 2), the products on
+   the int8 warpgroup MMA (``IGMMA...S8.S8``, one per k-step of the
+   encoded word) and no POPC loop (``tc_products``).
 3. Kernel vs its plain PyTorch version on the card, on sweep inputs built
    exactly as the neighbour engines build them: the bucketed table of a
    1M-read sample (~2e5 uniques) and of a 10M-read sample (~2e6
@@ -34,7 +36,7 @@ Phases, each printing its own line; any failure exits non-zero:
    of it, and the card's ``roofline_ms``: the least of the POPC, one-hot
    and simplex forms' bounds (``roofline``); a kernel time below either
    fails the phase.  Phase 6 prints both for its shape too, phase 8 the
-   ring step's POPC bound (K2 keeps the POPC form) and the roofline.
+   ring's (K2 runs the same form).
 4. End to end: a 1M-read sample made by the benchmark recipe (single-end
    100 bp, dup factor 8, 30% one-substitution reads;
    ``humid_tpu_torch.tools.bench.gen_dataset``, bench.py's recipe), run
@@ -64,8 +66,14 @@ Phases, each printing its own line; any failure exits non-zero:
    and the dense tile sweep.  1 and 4 shards are timed.
 8. The ring at the main path's size: the 1M-read table on 4 shards must
    equal the bucketed tile sweep; kernel time (CUDA events around the
-   schedule's launches), launches and pair evaluations/s are printed,
-   and for one step the kernel alone, the wrapper and the plain version.
+   schedule's launches over blocks encoded beforehand; and with no pair
+   passing), launches, encodes and pair evaluations/s are printed, and
+   for one step the kernel alone (and with no pair passing), the wrapper
+   and the plain version, each beside the simplex bound; the encoder on
+   each block equals ``encode_table`` byte for byte, and its time for one
+   block (CUDA events, and the kernel's own from ``torch.profiler``),
+   the plain version's, its bytes' bound, and the bytes of a comm slot
+   and of an encoded block.
 9. End to end through the mesh: the phase-4 file with
    ``neighbor_opts={"strategy": "ring"}`` on 4 shards (ring launch count
    reset before, >= 1 required after), with ``"sharded_bucketed"`` (tile
@@ -193,7 +201,7 @@ Phases, each printing its own line; any failure exits non-zero:
     intervals on one clock and the pairs of cards whose kernels
     overlapped (``--mesh`` fails, after its other checks, unless two
     cards' kernels overlapped at sweep_10M).
-26. One JSON line describing both kernels: ``launches`` on this slice's
+26. One JSON line describing the kernels: ``launches`` on this slice's
     path (phase 32's e2e_1M runs: HUMID_TPU_TORCH_IMPL=pallas for the tile
     sweep, ``strategy="sharded", impl="pallas_ring"`` for the ring), each
     earlier path's in ``launches_by_path``;
@@ -202,14 +210,16 @@ Phases, each printing its own line; any failure exits non-zero:
     ring);
     ``wrapper_ms``, the same call through its wrapper; ``plain_ms``; the
     bound of the form each kernel runs for the same work (``form``: the
-    tile sweep the simplex int8 tensor-core form, the ring step the POPC
-    form) and the card's roofline (``roofline_ms``, ``roofline_by``,
-    ``roofline_form``); ``library_ms``,
+    simplex int8 tensor-core form, both) and the card's roofline
+    (``roofline_ms``, ``roofline_by``, ``roofline_form``); ``library_ms``,
     ``library_form`` and ``library_matmul_ms``: the same function by the
     one-hot matrix-product route (the reference's ``impl="mxu"``, bf16
     products as the port takes it on a card; phase 32, at dense_1M and at
-    the ring's one step).  The edit
-    path launches neither kernel and adds none.  ``sanitizer``: phase 31's
+    the ring's one step); the ring's ten launches (``ring_ms``,
+    ``ring_bound_ms``).  A third entry, the encoder (phase 8's block;
+    ``launches`` on the ring's run of phase 32, one a K2 launch; its
+    bytes' bound; ``library_ms`` null: no one PyTorch call encodes).  The
+    edit path launches none of them and adds none.  ``sanitizer``: phase 31's
     result for the kernel.  Then the card's nvidia-smi line and the
     result line ``{"ok": true, "device": {...}}``.  Every phase's seconds
     are printed after it ("phase N seconds").
@@ -324,46 +334,41 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def inner_loop_popc(sass: str, kernel: str) -> dict:
-    """POPC instructions per column in the inner loop of the w = 2 and
-    w = 3 instances of ``kernel``, from its disassembly: the stretch
-    between two branches or barriers that holds the most POPC is one group
-    of columns held against the thread's row.  Also that stretch's length
-    and its counts of the other instructions of the loop."""
-    import re
-
-    groups = {2: 8, 3: 4}  # columns per group (group_cols, hamming_common.cuh)
-    out = {}
-    for fn in sass.split("Function : ")[1:]:
-        name = fn.split("\n", 1)[0]
-        w = next((w for w in groups if f"{kernel}ILi{w}EE" in name), None)
-        if w is None:
-            continue
-        ops = re.findall(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_]+)", fn)
-        stretches, cur = [], []
-        for op in ops:
-            cur.append(op)
-            if op in ("BRA", "EXIT", "BAR"):
-                stretches.append(cur)
-                cur = []
-        hot = max(stretches, key=lambda st: st.count("POPC"))
-        out[f"w{w}"] = {
-            "popc_per_column": hot.count("POPC") / groups[w],
-            "instructions": len(hot),
-            **{op: hot.count(op) for op in ("POPC", "LOP3", "ISETP", "LDS")}}
-    return out
-
-
-def k1_products(sass: str, kernel: str) -> dict:
-    """The tile sweep's tensor-core products in the w = 2 and w = 3
-    instances of ``kernel``, from its disassembly: the IGMMA instructions
-    (the int8 warpgroup MMA), their mnemonics, and the k-steps one product
-    of an encoded word takes (``table_width(w) / 32``); also the POPC
-    count (the POPC form's, which K1 no longer has)."""
+def tc_products(sass: str, kernel: str) -> dict:
+    """The tensor-core products in the w = 2 and w = 3 instances of
+    ``kernel`` (either Hamming kernel), from its disassembly: the IGMMA
+    instructions (the int8 warpgroup MMA), their mnemonics, and the
+    k-steps one product of an encoded word takes (``table_width(w) /
+    32``); also the POPC count and ``other_POPC``, the POPC that are not
+    a lane's rank in a warp vote (``POPC(SR_LTMASK & mask)``: the
+    compiler's warp-aggregated atomics, which the hit buffer's adds
+    compile to, once for each copy of the epilogue's walk).  A distance
+    loop of the POPC form counts the bits of XORed words, so any POPC of
+    it is an ``other_POPC``."""
     import re
 
     from humid_tpu_torch.ops.cuda_hamming import table_width
+
+    instr = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?"
+                       r"([A-Z0-9_.x]+)\s*([^;]*);")
+
+    def writer(code, i, reg):
+        """The instruction before i (16 at most) that last wrote reg."""
+        for j in range(i - 1, max(-1, i - 17), -1):
+            if code[j][1][:1] == [reg]:
+                return j
+        return None
+
+    def lane_rank(code, i):
+        j = writer(code, i, code[i][1][1])
+        if j is None or not code[j][0].startswith("LOP3"):
+            return False
+        for reg in code[j][1][1:3]:
+            k = writer(code, j, reg)
+            if k is not None and code[k][0] == "S2R" \
+                    and code[k][1][1:2] == ["SR_LTMASK"]:
+                return True
+        return False
 
     out = {}
     for fn in sass.split("Function : ")[1:]:
@@ -371,12 +376,15 @@ def k1_products(sass: str, kernel: str) -> dict:
         w = next((w for w in (2, 3) if f"{kernel}ILi{w}EE" in name), None)
         if w is None:
             continue
-        ops = re.findall(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.x]+)", fn)
-        mma = [op for op in ops if op.startswith("IGMMA")]
+        code = [(m.group(1), [a.strip() for a in m.group(2).split(",")])
+                for m in instr.finditer(fn)]
+        mma = [op for op, _ in code if op.startswith("IGMMA")]
+        popc = [i for i, (op, _) in enumerate(code) if op == "POPC"]
+        k = table_width(w)
         out[f"w{w}"] = {"igmma": len(mma), "mnemonics": sorted(set(mma)),
-                        "k_steps": table_width(w) // 32,
-                        "POPC": ops.count("POPC")}
+                        "k_steps": k // 32, "POPC": len(popc),
+                        "other_POPC": sum(not lane_rank(code, i)
+                                          for i in popc)}
     return out
 
 
@@ -437,9 +445,9 @@ def roofline(evaluations: int, w: int, n_bytes: int, card: dict) -> dict:
             "roofline_by": forms[form]["bound_by"], "roofline_form": form}
 
 
-def k1_bound(evaluations: int, w: int, n_bytes: int) -> dict:
-    """The bound of the form K1 runs: the simplex int8 tensor-core form
-    (``roofline``), named in ``form``."""
+def simplex_bound(evaluations: int, w: int, n_bytes: int) -> dict:
+    """The bound of the form both kernels run: the simplex int8
+    tensor-core form (``roofline``), named in ``form``."""
     from humid_tpu_torch.tools.k1_compare import tensor_core_bound
 
     return {**tensor_core_bound(evaluations, w, n_bytes, 3),
@@ -530,7 +538,7 @@ def kernel_vs_plain(name, rows, tile_pairs, *, tile, u_pad, u, max_dist,
                          plain_reps)
     evaluations = sweep_evaluations(len(rows), tile_pairs, tile, u_pad, u)
     n_bytes = k1_bytes(lanes, tp, len(ka))
-    bound = k1_bound(evaluations, int(lanes.shape[1]), n_bytes)
+    bound = simplex_bound(evaluations, int(lanes.shape[1]), n_bytes)
     roof = roofline(evaluations, int(lanes.shape[1]), n_bytes, card)
     out = {"rows": int(lanes.shape[0]), "w": int(lanes.shape[1]),
            "tile_pairs": int(len(tp)), "pairs": int(len(ka)),
@@ -794,7 +802,7 @@ def ids_phase(device, uniq, card) -> None:
         len(prep["rows"][0]), prep["tile_pairs"][0], prep["tile"],
         prep["r_pad"], prep["urows"][0])
     n_bytes = k1_bytes(lanes, tp, len(got[0]), ids)
-    bound = k1_bound(evaluations, int(lanes.shape[1]), n_bytes)
+    bound = simplex_bound(evaluations, int(lanes.shape[1]), n_bytes)
     share = within_bound("phase 6", kernel_ms, bound)
     roof = roofline(evaluations, int(lanes.shape[1]), n_bytes, card)
     roof_share = within_bound("phase 6", kernel_ms, roof, "roofline_ms")
@@ -872,11 +880,14 @@ def ring_schedule_phase(device, table) -> None:
 
 def ring_main_shape_phase(device, uniq, card) -> dict:
     """Phase 8: the ring at the main path's size, 4 shards; times of the
-    kernel alone (the schedule's launches between two CUDA events), of
-    the whole ring call, and of one step's wrapper and plain version."""
+    kernel alone (the schedule's launches over blocks encoded beforehand,
+    between two CUDA events; and with no pair passing), of the encoder
+    per step, of the whole ring call, and of one step's kernel alone,
+    wrapper and plain version."""
     import torch
 
     from humid_tpu_torch import parallel as P
+    from humid_tpu_torch.ops import simplex_encode as SE
     from humid_tpu_torch.ops.neighbors import find_neighbor_pairs
     from humid_tpu_torch.parallel import cuda_ring as R
     from humid_tpu_torch.parallel.mesh import pad_to_shards
@@ -885,9 +896,9 @@ def ring_main_shape_phase(device, uniq, card) -> dict:
     mesh = P.data_mesh(d, device)
     want = find_neighbor_pairs(uniq, 1, word_length=24, strategy="bucketed",
                                device=device)
-    R.LAUNCHES = 0
+    R.LAUNCHES = SE.LAUNCHES = 0
     got = P.sharded_neighbor_pairs_ring(uniq, 1, word_length=24, mesh=mesh)
-    launches = R.LAUNCHES
+    launches, encodes = R.LAUNCHES, SE.LAUNCHES
     _equal_pairs("phase 8 ring (4 shards) vs bucketed sweep", got, want)
     ring_wall = _wall_ms(lambda: P.sharded_neighbor_pairs_ring(
         uniq, 1, word_length=24, mesh=mesh))
@@ -895,24 +906,41 @@ def ring_main_shape_phase(device, uniq, card) -> dict:
     b = -(-u // d)
     lanes = _lanes(pad_to_shards(uniq, d, multiple=1), device)
     blocks = [lanes[i * b:(i + 1) * b] for i in range(d)]
+    # The encoder against its plain version, byte for byte, on each block.
+    tables = [SE.encode(blk) for blk in blocks]
+    plain_tables = [SE.encode_table(blk) for blk in blocks]
+    encode_err = max(int((t.int() - p.int()).abs().max())
+                     for t, p in zip(tables, plain_tables))
+    if encode_err:
+        raise SmokeFailure(f"phase 8: the encoder differs from encode_table "
+                           f"(max abs err {encode_err})")
     steps = [(me, q, up) for me, s, q, up, emits in R.ring_schedule(d)
              if emits]
     valid = [max(0, min(u - i * b, b)) for i in range(d)]
     evaluations = sum(valid[me] * (valid[me] - 1) // 2 if up
                       else valid[me] * valid[q] for me, q, up in steps)
     buf = R._PairBuffer.new(R.CAP_START, device)
+    work = torch.zeros(len(steps), dtype=torch.int64, device=device)
 
-    def all_steps():
-        buf.counter.zero_()
-        for me, q, up in steps:
-            R._step(blocks[me], blocks[q], buf, row_base=me * b,
-                    col_base=q * b, u=u, max_dist=1, upper_only=up)
+    def all_steps(max_dist):
+        def run():
+            buf.counter.zero_()
+            work.zero_()
+            for i, (me, q, up) in enumerate(steps):
+                R._step(blocks[me], blocks[q], buf, row_base=me * b,
+                        col_base=q * b, u=u, max_dist=max_dist,
+                        upper_only=up, tables=(tables[me], tables[q]),
+                        work=work[i])
+        return run
 
-    kernel_ms = time_cuda(all_steps, 10)
+    kernel_ms = time_cuda(all_steps(1), 10)
     if int(buf.counter.item()) != len(want[0]):
         raise SmokeFailure(f"phase 8: the timed launches counted "
                            f"{int(buf.counter.item())} pairs, expected "
                            f"{len(want[0])}")
+    no_hit_ms = time_cuda(all_steps(-1), 10)
+    if int(buf.counter.item()):
+        raise SmokeFailure("phase 8: a pair passed at max_dist -1")
     # One step at this shape: shard 0 against block 1 (not upper_only).
     kw = dict(row_base=0, col_base=b, u=u, max_dist=1, upper_only=False)
     step = R.ring_block_pairs(blocks[0], blocks[1], **kw)
@@ -923,24 +951,45 @@ def ring_main_shape_phase(device, uniq, card) -> dict:
     plain_ms = time_cuda(
         lambda: R.ring_block_pairs_plain(blocks[0], blocks[1], **kw), 1)
 
-    def one_step():
-        buf.counter.zero_()
-        R._step(blocks[0], blocks[1], buf, **kw)
+    def one_step(max_dist):
+        def run():
+            buf.counter.zero_()
+            work[:1].zero_()
+            R._step(blocks[0], blocks[1], buf, tables=tables[:2],
+                    work=work[0], **{**kw, "max_dist": max_dist})
+        return run
 
-    step_kernel_ms = time_cuda(one_step, 20)
+    step_kernel_ms = time_cuda(one_step(1), 20)
     if int(buf.counter.item()) != len(step[0]):
         raise SmokeFailure(f"phase 8: the timed step counted "
                            f"{int(buf.counter.item())} pairs, expected "
                            f"{len(step[0])}")
-    step_bytes = 2 * b * w * 4 + 8 * len(step[0])
-    ring_bytes = len(steps) * 2 * b * w * 4 + 8 * len(want[0])
-    step_bound = bound_ms(valid[0] * valid[1], w, step_bytes, card)
-    ring_bound = bound_ms(evaluations, w, ring_bytes, card)
+    step_no_hit_ms = time_cuda(one_step(-1), 20)
+    # The encoder per step: one received block into the shard's buffer.
+    received = torch.empty_like(tables[1])
+    encode_ms = time_cuda(lambda: SE.encode(blocks[1], out=received), 20)
+    # Back-to-back launches this short are paced by the host's set-up:
+    # the kernel's own time, from the profiler's trace.
+    encode_trace = kernels_launched(
+        lambda: SE.encode(blocks[1], out=received), "phase8_encode",
+        "simplex_encode_kernel")
+    # None where the trace lost the kernel's event (PERF.md §7).
+    encode_device_ms = (encode_trace["named_busy_ms"]
+                        if encode_trace["named"] else None)
+    encode_plain_ms = time_cuda(lambda: SE.encode_table(blocks[1]), 5)
+    slot_bytes, encoded_bytes = b * w * 4, tables[0].numel()
+    encode_bound_ms = (slot_bytes + encoded_bytes) / 3.35e12 * 1e3
+    step_bytes = 2 * encoded_bytes + 8 * len(step[0])
+    ring_bytes = len(steps) * 2 * encoded_bytes + 8 * len(want[0])
+    step_bound = simplex_bound(valid[0] * valid[1], w, step_bytes)
+    ring_bound = simplex_bound(evaluations, w, ring_bytes)
     step_roof = roofline(valid[0] * valid[1], w, step_bytes, card)
     ring_roof = roofline(evaluations, w, ring_bytes, card)
     out = {"uniques": u, "shards": d, "block_rows": b,
-           "launches_per_ring": launches, "evaluations": evaluations,
+           "launches_per_ring": launches, "encodes_per_ring": encodes,
+           "evaluations": evaluations,
            "pairs": len(want[0]), "kernel_ms_all_steps": kernel_ms,
+           "no_hit_kernel_ms_all_steps": no_hit_ms,
            "evaluations_per_s": evaluations / (kernel_ms * 1e-3),
            "ring_bound_ms": ring_bound["bound_ms"],
            "ring_bound_share": within_bound("phase 8 ring", kernel_ms,
@@ -948,8 +997,17 @@ def ring_main_shape_phase(device, uniq, card) -> dict:
            "ring_roofline_ms": ring_roof["roofline_ms"],
            "ring_roofline_share": within_bound("phase 8 ring", kernel_ms,
                                                ring_roof, "roofline_ms"),
-           "ring_wall_ms": ring_wall, "slot_bytes": b * w * 4,
-           "step_kernel_ms": step_kernel_ms, "step_ms": ms,
+           "ring_wall_ms": ring_wall, "slot_bytes": slot_bytes,
+           "encoded_bytes": encoded_bytes, "encode_ms": encode_ms,
+           "encode_device_ms": encode_device_ms,
+           "encode_plain_ms": encode_plain_ms,
+           "encode_bound_ms": encode_bound_ms,
+           "encode_bound_share": within_bound(
+               "phase 8 encoder", encode_device_ms or encode_ms,
+               {"bound_ms": encode_bound_ms}),
+           "encode_max_abs_err": encode_err,
+           "step_kernel_ms": step_kernel_ms,
+           "step_no_hit_kernel_ms": step_no_hit_ms, "step_ms": ms,
            "step_plain_ms": plain_ms, "max_abs_err": step_err,
            **step_bound,
            "bound_share": within_bound("phase 8 step", step_kernel_ms,
@@ -2200,10 +2258,11 @@ def mesh_labels_phase(e2e: dict, device, card) -> dict:
                                f"connected_components_device")
         bound = labels_bound
         if name == "dedup_step":
-            # K2's ring meets every word pair once: the POPC form's bound
-            # of those evaluations (the labels' share is far below it).
-            bound = bound_ms(u * (u - 1) // 2, uniq.shape[1],
-                             4 * uniq.size + 16 * e + 8 * u, card)
+            # K2's ring meets every word pair once: the bound of the form
+            # it runs (the simplex int8 tensor-core form) for those
+            # evaluations (the labels' share is far below it).
+            bound = simplex_bound(u * (u - 1) // 2, uniq.shape[1],
+                             4 * uniq.size + 16 * e + 8 * u)
         rec = {"launches": kernels_launched(
                    fn, name, "ring_sweep_kernel" if name == "dedup_step"
                    else None),
@@ -3007,6 +3066,7 @@ def onehot_phase(device, tables, sweeps, e2e) -> dict:
     phase 4's outputs."""
     from humid_tpu_torch import parallel as P
     from humid_tpu_torch.ops import hamming as H
+    from humid_tpu_torch.ops import simplex_encode as SE
     from humid_tpu_torch.ops.neighbors import bucketed_inputs, dense_inputs
     from humid_tpu_torch.parallel import cuda_ring as R
     from humid_tpu_torch.parallel.mesh import pad_to_shards
@@ -3083,14 +3143,14 @@ def onehot_phase(device, tables, sweeps, e2e) -> dict:
             ("sharded_pallas_ring", {},
              {"strategy": "sharded", "impl": "pallas_ring",
               "mesh": P.data_mesh(d, device)})):
-        R.LAUNCHES = 0
+        R.LAUNCHES = SE.LAUNCHES = 0
         res, seconds, k1 = _with_env(env, lambda: _run_e2e(
             e2e, f"impl_{name}", device, neighbor_opts=opts))
-        k2 = R.LAUNCHES
+        k2, encodes = R.LAUNCHES, SE.LAUNCHES
         engine = res.extra["engine"]
         _same_files(e2e["outs"][-1], os.path.join(WORK, f"out_impl_{name}"))
         runs[name] = {"seconds": seconds, "k1": k1, "k2": k2,
-                      "engine": engine,
+                      "encode": encodes, "engine": engine,
                       "neighbours_s": res.extra["timings"][
                           "Calculating neighbours using Hamming distance"]}
         say(f"phase 32 e2e_1M {name}: {json.dumps(runs[name])}; outputs == "
@@ -3098,7 +3158,8 @@ def onehot_phase(device, tables, sweeps, e2e) -> dict:
     wanted = {"impl_pallas": ("pallas", "k1"),
               "sharded_pallas_ring": ("pallas_ring", "k2")}
     for name, (impl, kernel) in wanted.items():
-        if (runs[name][kernel] < 1
+        # Both kernels read the tables the encoder made in the same run.
+        if (runs[name][kernel] < 1 or runs[name]["encode"] < 1
                 or runs[name]["engine"].get("impl") != impl):
             raise SmokeFailure(f"phase 32 {name}: {json.dumps(runs[name])}")
     if runs["impl_mxu"]["k1"] or runs["impl_mxu"]["engine"].get(
@@ -3259,7 +3320,7 @@ def main() -> int:
                 "HUMID_TPU_TORCH_CALIBRATION", "HUMID_TPU_TORCH_STRATEGY",
                 "HUMID_TPU_TORCH_UNIQUE", "HUMID_TPU_TORCH_SHARDS"):
         os.environ.pop(var, None)
-    kernels = ("hamming_sweep", "ring_sweep")
+    kernels = ("hamming_sweep", "ring_sweep", "simplex_encode")
     for name in kernels:  # build from this checkout's sources
         _build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
@@ -3268,24 +3329,24 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     for lib in libs:
         say(lib.with_suffix(".log").read_text().strip())
-    mma = k1_products(_build.disassemble("hamming_sweep"),
-                      "hamming_sweep_kernel")
-    say(f"phase 2 hamming_sweep products (SASS): {json.dumps(mma)}")
-    for w in (2, 3):
-        got = mma.get(f"w{w}", {})
-        if (got.get("igmma", 0) < got.get("k_steps", 1)
-                or not all(m.endswith(".S8.S8") for m in got["mnemonics"])):
-            raise SmokeFailure(
-                f"hamming_sweep, w = {w}: the products are not on the int8 "
-                f"warpgroup MMA (IGMMA ... S8.S8, one per k-step): {mma}")
-    loop = inner_loop_popc(_build.disassemble("ring_sweep"),
-                           "ring_sweep_kernel")
-    say(f"phase 2 ring_sweep inner loop (SASS): {json.dumps(loop)}")
-    for w in (2, 3):
-        if loop[f"w{w}"]["popc_per_column"] != -(-w // 2):
-            raise SmokeFailure(
-                f"ring_sweep, w = {w}: the inner loop does not spend "
-                f"ceil(w / 2) POPC a column: {loop}")
+    # Geometry in tc_sweep.cuh: K1's narrow instance (128-column products
+    # for short lists) exists where it differs, at w <= 2.
+    for lib, kernel, ws in (("hamming_sweep", "hamming_sweep_kernel", (2, 3)),
+                            ("hamming_sweep", "hamming_sweep_narrow_kernel",
+                             (2,)),
+                            ("ring_sweep", "ring_sweep_kernel", (2, 3))):
+        mma = tc_products(_build.disassemble(lib), kernel)
+        say(f"phase 2 {kernel} products (SASS): {json.dumps(mma)}")
+        for w in ws:
+            got = mma.get(f"w{w}", {})
+            if (got.get("igmma", 0) < got.get("k_steps", 1)
+                    or got["other_POPC"]
+                    or not all(m.endswith(".S8.S8")
+                               for m in got["mnemonics"])):
+                raise SmokeFailure(
+                    f"{kernel}, w = {w}: the products are not on the int8 "
+                    f"warpgroup MMA (IGMMA ... S8.S8, one per k-step, no "
+                    f"POPC loop): {mma}")
 
     device = torch.device("cuda")
     if sys.argv[1:] == ["--mesh"]:
@@ -3398,13 +3459,42 @@ def main() -> int:
                              "ring_e2e_1M": mesh_launches["ring"]},
         "max_abs_err": max(ring_err, ring["max_abs_err"]),
         "ms": ring["step_kernel_ms"], "wrapper_ms": ring["step_ms"],
+        "no_hit_ms": ring["step_no_hit_kernel_ms"],
         "plain_ms": ring["step_plain_ms"],
         "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
-        "form": "popc", "roofline_ms": ring["roofline_ms"],
+        "form": ring["form"], "roofline_ms": ring["roofline_ms"],
         "roofline_by": ring["roofline_by"],
         "roofline_form": ring["roofline_form"],
+        "ring_ms": ring["kernel_ms_all_steps"],
+        "ring_bound_ms": ring["ring_bound_ms"],
         **library_entry(onehot["ring_step"]),
-        "sanitizer": sanitizer_entry(native, "ring_sweep")}]}))
+        "sanitizer": sanitizer_entry(native, "ring_sweep")}, {
+        # The pre-pass of both kernels: packed lanes -> the simplex table.
+        # It stands for the TPU ring kernel's in-VMEM expansion of the
+        # packed block it received (_build_oht).
+        "name": "simplex_encode", "route": "cuda",
+        "source": "humid_tpu_torch/csrc/simplex_encode.cu",
+        "replaces": "humid_tpu/parallel/pallas_ring.py:55",
+        # The same run as the ring's: one encode a K2 launch.
+        "launches": impl_runs["sharded_pallas_ring"]["encode"],
+        "launches_by_path": {
+            "sharded_pallas_ring_e2e_1M":
+                impl_runs["sharded_pallas_ring"]["encode"],
+            "impl_pallas_e2e_1M": impl_runs["impl_pallas"]["encode"],
+            "ring_1M_d4": ring["encodes_per_ring"]},
+        "max_abs_err": ring["encode_max_abs_err"],
+        # ms: one ring block (ring_1M_d4's) into the shard's buffer, the
+        # kernel's own time (profiler); events_ms: back-to-back launches
+        # between CUDA events, which the host's set-up paces.
+        "ms": ring["encode_device_ms"] or ring["encode_ms"],
+        "events_ms": ring["encode_ms"],
+        "plain_ms": ring["encode_plain_ms"],
+        "bound_ms": ring["encode_bound_ms"], "bound_by": "bytes",
+        "slot_bytes": ring["slot_bytes"],
+        "encoded_bytes": ring["encoded_bytes"],
+        # No one PyTorch call computes the encoding (its plain version is
+        # a chain of elementwise operations).
+        "library_ms": None}]}))
     say(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

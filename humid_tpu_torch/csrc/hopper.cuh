@@ -1,6 +1,7 @@
-// Hopper (sm_90a) primitives of the tile sweep (hamming_sweep.cu), as
-// inline PTX: mbarriers, TMA tile loads, and the int8 warpgroup matrix
-// product (wgmma) with its shared-memory operand descriptors.
+// Hopper (sm_90a) primitives of the int8 tensor-core pipeline
+// (tc_sweep.cuh, which both Hamming kernels run), as inline PTX:
+// mbarriers, TMA tile loads, and the int8 warpgroup matrix product
+// (wgmma) with its shared-memory operand descriptors.
 //
 // Operand layout.  Every operand tile in shared memory is a run of
 // 32-byte rows (one k-step of an int8 wgmma, m64nNk32) written by a TMA

@@ -29,8 +29,9 @@ On a CUDA tensor :func:`hamming_tile_pairs` launches the kernel or raises;
 on a CPU tensor, and only there, it runs the plain version in its place.
 
 The kernel computes every distance on the int8 tensor cores from an
-encoded table that the wrapper builds once per call (:func:`encode_table`,
-a plain PyTorch pre-pass): 3 channels of +-1 a base, so that the integer
+encoded table that the wrapper builds once per call (``simplex_encode``:
+its CUDA pre-pass :func:`encode`, whose plain version is
+:func:`encode_table`): 3 channels of +-1 a base, so that the integer
 product of two words' rows is 48 w - 4 * distance, and a pair passes iff
 that product reaches :func:`pass_threshold`.  It writes one int64 key
 ``a * N + b`` per match, so the sort runs on what the kernel wrote, and
@@ -46,7 +47,9 @@ import functools
 
 import torch
 
-from .hamming import base_codes, lanes_u32, mismatch_counts
+from .hamming import lanes_u32, mismatch_counts
+from .simplex_encode import (  # noqa: F401 (the encoding's names here too)
+    SIMPLEX, TABLE_ROWS, encode, encode_table, pass_threshold, table_width)
 
 #: Kernel launches in this process (one per launch of the CUDA kernel,
 #: nowhere else); callers reset it to 0 to count one run's launches.
@@ -64,51 +67,6 @@ CAP_START = 1 << 23
 MAX_CAP = 1 << 27
 #: Lane counts the kernel is instantiated for (words up to 256 bases).
 MAX_LANES = 16
-#: The kernel's encoding of a base, 3 int8 channels in code order A C G T:
-#: the product of two bases' channels is 3 when they are equal, -1 when
-#: not.
-SIMPLEX = ((1, 1, 1), (1, -1, -1), (-1, 1, -1), (-1, -1, 1))
-#: The encoded table's rows are a multiple of this (one TMA box of the
-#: kernel, one 64-row wgmma tile).
-TABLE_ROWS = 64
-#: Rows encoded at a time (bounds the pre-pass's scratch at 2^23 rows).
-_ENCODE_ROWS = 1 << 20
-
-
-def table_width(w: int) -> int:
-    """Bytes of a word of ``w`` lanes in the encoded table: 3 channels of
-    its 16 w base slots, rounded up to a multiple of 32 (the kernel's
-    k-step)."""
-    return -(-48 * w // 32) * 32
-
-
-def encode_table(lanes: torch.Tensor) -> torch.Tensor:
-    """[N, w] lanes -> the kernel's K-major [R, K] int8 table on the same
-    device: row g holds the :data:`SIMPLEX` channels of all 16 w base
-    slots of word g (padding slots too: code A in every word), columns
-    from 48 w on zero up to K = :func:`table_width`, rows from N on zero
-    up to R, a multiple of :data:`TABLE_ROWS` (at least one)."""
-    n, w = lanes.shape
-    rows = max(-(-n // TABLE_ROWS), 1) * TABLE_ROWS
-    out = torch.zeros((rows, table_width(w)), dtype=torch.int8,
-                      device=lanes.device)
-    for lo in range(0, n, _ENCODE_ROWS):
-        codes = base_codes(lanes[lo:lo + _ENCODE_ROWS]).to(torch.int8)
-        hi, low = codes >> 1, codes & 1
-        # SIMPLEX by arithmetic (no host table to copy): 1 - 2 * bit.
-        channels = torch.stack([hi, low, hi ^ low], dim=2)
-        out[lo:lo + len(codes), :48 * w] = (1 - 2 * channels).reshape(
-            len(codes), 48 * w)
-    return out
-
-
-def pass_threshold(w: int, max_dist: int) -> int:
-    """The least product of two encoded rows of ``w`` lanes whose words
-    are at most ``max_dist`` bases apart: the product is 4 * matches -
-    16 w = 48 w - 4 * distance over all 16 w slots, so a pair passes iff
-    it is at least 48 w - 4 * max_dist.  ``max_dist`` is clamped to
-    [-1, 16 w]: below 0 nothing passes, from 16 w on every pair does."""
-    return 48 * w - 4 * min(max(max_dist, -1), 16 * w)
 
 
 def _check(lanes: torch.Tensor, tile_pairs: torch.Tensor, tile: int,
@@ -212,15 +170,16 @@ def _launch(lanes, pairs, keys, counter, *, tile, part_stride, part_valid,
     """Enqueue the kernel over ``pairs`` on the current stream: matching
     keys go to ``keys`` (as many as it holds), their number is added to
     ``counter[0]``, and ``counter[1]`` is set if a tile pair is negative
-    or out of order.  ``table`` is :func:`encode_table` of ``lanes``
-    (built here when not given).  No host synchronisation."""
+    or out of order.  ``table`` is the encoded table of ``lanes``
+    (:func:`encode`, built here when not given).  No host
+    synchronisation."""
     global LAUNCHES
     n, w = lanes.shape
     if w > MAX_LANES:
         raise ValueError(f"the CUDA sweep takes at most {MAX_LANES} lanes "
                          f"(256-base words), got {w}")
     if table is None:
-        table = encode_table(lanes)
+        table = encode(lanes)
     # The launch's work counter: the kernel's CTAs take their units from it.
     work = torch.zeros(1, dtype=torch.int64, device=lanes.device)
     with torch.cuda.device(lanes.device):
@@ -290,8 +249,9 @@ def hamming_tile_pairs(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
                        cap_start: int | None = None):
     """All matching (a, b) of the tile-pair list (module docstring),
     int64, sorted by (a, b).  CUDA tensors run the hand-written kernel
-    (``csrc/hamming_sweep.cu``) over one :func:`encode_table` of ``lanes``
-    in chunks of CHUNK_PAIRS tile pairs, each
+    (``csrc/hamming_sweep.cu``) over one encoded table of ``lanes``
+    (:func:`encode`, the CUDA pre-pass) in chunks of CHUNK_PAIRS tile
+    pairs, each
     launch into a key buffer of ``cap_start`` pairs at first (default
     CAP_START; an overflow costs one relaunch, never a pair); CPU tensors
     run :func:`hamming_tile_pairs_plain` through the same buffers."""
@@ -299,7 +259,7 @@ def hamming_tile_pairs(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
     kw = dict(tile=tile, part_stride=part_stride, part_valid=part_valid,
               max_dist=max_dist, ids=ids)
     if lanes.device.type == "cuda" and len(tile_pairs):
-        kw["table"] = encode_table(lanes)  # once for every launch
+        kw["table"] = encode(lanes)  # once for every launch
     cap_start = CAP_START if cap_start is None else int(cap_start)
     outs: list = []
     for lo in range(0, len(tile_pairs), CHUNK_PAIRS):

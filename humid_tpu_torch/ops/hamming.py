@@ -23,9 +23,11 @@ bit of its code) and in ``hi`` (the high bit), and
                      popcount((lo_a ^ lo_b) | (hi_a ^ hi_b))
 
 (:func:`mismatch_counts_planes`).  The order of the bases inside a plane
-word does not matter to a count.  This is the form the CUDA kernels
-compute (``csrc/hamming_common.cuh``); the plain versions of the kernels
-keep the first form.
+word does not matter to a count.  This is the POPC form, which the
+earlier builds that ``tools/k1_compare.py`` and ``tools/k2_compare.py``
+time the kernels against compute (the kernels themselves read the
+simplex encoding of ``ops/simplex_encode.py``); the plain versions of the
+kernels keep the first form.
 
 Lanes are carried as int64 tensors holding the uint32 value (0..2^32-1):
 most torch ops lack uint32, and with int64 the right shift is logical for

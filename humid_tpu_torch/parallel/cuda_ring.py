@@ -23,10 +23,17 @@ copied to slot s + 1 of its left neighbour on a copy stream while the
 kernel for step s runs on the compute stream; one event per (shard, slot)
 says "slot received".  Every slot is written once and never reused, so
 there is no flow control, and all steps of all shards are enqueued
-without a host synchronisation.  Each shard appends into one pair buffer
-through one counter over all its steps; the counter is read once, and a
-shard whose count exceeds its capacity reruns its steps (the slots are
-still there) with the exact capacity.  The shards' pairs are merged and
+without a host synchronisation.  What travels is the packed block, as on
+the TPU: the kernel reads the simplex encoding (``ops/simplex_encode.py``,
+12x the bytes at w = 2), so each shard on a card also holds two encoded
+blocks, its own (encoded at step 0) and the received one (slot s encoded
+on the compute stream once it has arrived, just before step s: stream
+order makes the buffer free again for step s + 1), and one zeroed work
+counter per step, so that concurrent launches share no counter.  Each
+shard appends into one pair buffer through one counter over all its
+steps; the counter is read once, and a shard whose count exceeds its
+capacity reruns its steps (the slots are still there) with the exact
+capacity.  The shards' pairs are merged and
 sorted by (a, b) on the host, so the order of the atomic appends never
 shows.
 
@@ -46,6 +53,8 @@ import torch
 
 from ..ops.cuda_hamming import MAX_LANES, _sorted_keys, _sorted_pairs
 from ..ops.hamming import lanes_u32, mismatch_counts
+from ..ops.simplex_encode import (encode, pass_threshold, table_rows,
+                                  table_width)
 from .mesh import data_mesh, pad_to_shards
 
 #: Kernel launches in this process (one per launch of the CUDA kernel,
@@ -155,7 +164,8 @@ def _kernel_fn():
 
     fn = _build.load("ring_sweep").humid_ring_sweep
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, p, i64, i32, i64, i64, i64, i32, i32, p, i64, p, p]
+    fn.argtypes = [p, p, i64, i32, i64, i32, i64, i64, i64, i32, i32, p, i64,
+                   p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -174,11 +184,14 @@ class _PairBuffer:
 
 
 def _step(rows, cols, buf: _PairBuffer, *, row_base, col_base, u, max_dist,
-          upper_only) -> None:
+          upper_only, tables=None, work=None) -> None:
     """Append one ring step's pairs to ``buf`` and add their number to its
     counter, without a host synchronisation on CUDA: the kernel on the
-    current stream for CUDA tensors; on CPU tensors the plain version
-    fills the buffer the way the kernel would."""
+    current stream for CUDA tensors, over ``tables`` (the encoded
+    ``rows`` and ``cols``, :func:`~..ops.simplex_encode.encode`) with
+    ``work``, a zeroed one-word work counter of this launch alone (made
+    here when not given); on CPU tensors the plain version fills the
+    buffer the way the kernel would."""
     global LAUNCHES
     dev = rows.device
     b, w = rows.shape
@@ -197,11 +210,22 @@ def _step(rows, cols, buf: _PairBuffer, *, row_base, col_base, u, max_dist,
     if w > MAX_LANES:
         raise ValueError(f"the CUDA ring takes at most {MAX_LANES} lanes "
                          f"(256-base words), got {w}")
+    if tables is None:
+        raise ValueError("the CUDA ring step reads the encoded blocks: "
+                         "pass tables=")
+    rt, ct = tables
+    if (rt.shape != ct.shape or rt.shape[0] < b
+            or rt.shape[1] != table_width(w)):
+        raise ValueError(f"encoded blocks {tuple(rt.shape)} and "
+                         f"{tuple(ct.shape)} do not hold [{b}, {w}] blocks")
+    if work is None:
+        work = torch.zeros(1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = _kernel_fn()(
-            rows.data_ptr(), cols.data_ptr(), b, w, row_base, col_base, u,
-            max_dist, int(upper_only), buf.keys.data_ptr(), cap,
-            buf.counter.data_ptr(),
+            rt.data_ptr(), ct.data_ptr(), rt.shape[0], rt.shape[1], b, w,
+            row_base, col_base, u, pass_threshold(w, max_dist),
+            int(upper_only), buf.keys.data_ptr(), cap,
+            buf.counter.data_ptr(), work.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_sweep launch failed: CUDA error {err}")
@@ -210,7 +234,7 @@ def _step(rows, cols, buf: _PairBuffer, *, row_base, col_base, u, max_dist,
 
 def ring_block_pairs(rows: torch.Tensor, cols: torch.Tensor, *,
                      row_base: int, col_base: int, u: int, max_dist: int,
-                     upper_only: bool):
+                     upper_only: bool, tables=None):
     """One ring step: every (r, c) of the own block ``rows`` [b, w] (global
     index row_base + r) and the received block ``cols`` [b, w] (global
     index col_base + c), int32 tensors holding the uint32 lanes, with both
@@ -218,13 +242,18 @@ def ring_block_pairs(rows: torch.Tensor, cols: torch.Tensor, *,
     when ``upper_only`` (then both are the same block).  Returns (a, b) =
     (min, max) of the global indices, int64 on the input's device, sorted
     by (a, b).  CUDA tensors run the hand-written kernel
-    (``csrc/ring_sweep.cu``); CPU tensors run
-    :func:`ring_block_pairs_plain`."""
+    (``csrc/ring_sweep.cu``) over the two blocks' encoded tables
+    (``tables``, made here by the CUDA encoder when not given); CPU
+    tensors run :func:`ring_block_pairs_plain`."""
     _check(rows, cols, row_base, col_base, u, max_dist, upper_only)
     kw = dict(row_base=row_base, col_base=col_base, u=u, max_dist=max_dist,
               upper_only=upper_only)
     if rows.device.type == "cpu":
         return ring_block_pairs_plain(rows, cols, **kw)
+    if tables is None:
+        enc = encode(rows)
+        tables = (enc, enc if cols is rows else encode(cols))
+    kw["tables"] = tables
     buf = _PairBuffer.new(min(CAP_START, rows.shape[0] ** 2), rows.device)
     _step(rows, cols, buf, **kw)
     n = int(buf.counter.item())
@@ -316,9 +345,42 @@ def ring_slots(block: torch.Tensor, steps: int,
 
 @dataclass
 class _Shard:
-    """One shard of the Hamming ring: its pair buffer and its slots."""
+    """One shard of the Hamming ring: its pair buffer, its slots and, on
+    CUDA, its two encoded blocks (own, received) and the steps' work
+    counters."""
     buf: _PairBuffer
     ring: RingSlots
+    own: "torch.Tensor | None" = None
+    received: "torch.Tensor | None" = None
+    work: "torch.Tensor | None" = None
+
+    @classmethod
+    def new(cls, cap: int, block: torch.Tensor, steps: int,
+            dev: torch.device) -> "_Shard":
+        """The buffers first, then the slots (:func:`ring_slots`: the
+        shard's streams touch only memory allocated before them)."""
+        buf = _PairBuffer.new(cap, dev)
+        own = received = work = None
+        if dev.type == "cuda":
+            shape = (table_rows(len(block)), table_width(block.shape[1]))
+            own = torch.empty(shape, dtype=torch.int8, device=dev)
+            if steps > 1:
+                received = torch.empty(shape, dtype=torch.int8, device=dev)
+            work = torch.zeros(steps, dtype=torch.int64, device=dev)
+        return cls(buf, ring_slots(block, steps, dev), own, received, work)
+
+    def step_args(self, s: int) -> dict:
+        """The kernel's arguments of step s beside the blocks, encoding on
+        the current stream what it reads: the own block at step 0, slot s
+        into the received buffer at a later step.  Nothing on the CPU,
+        where the plain version reads the packed blocks."""
+        if self.own is None:
+            return {}
+        if s == 0:
+            encode(self.ring.slots[0], out=self.own)
+            return {"tables": (self.own, self.own), "work": self.work[0]}
+        encode(self.ring.slots[s], out=self.received)
+        return {"tables": (self.own, self.received), "work": self.work[s]}
 
 
 def _count(sh: _Shard) -> int:
@@ -347,8 +409,7 @@ def ring_shard_keys(packed: np.ndarray, max_dist: int, *, mesh,
     lanes = torch.from_numpy(np.ascontiguousarray(
         pad_to_shards(packed, d, multiple=1), np.uint32).view(np.int32))
     cap = min(CAP_START, steps * b * b)
-    shards = [_Shard(buf=_PairBuffer.new(cap, dev),
-                     ring=ring_slots(lanes[me * b:(me + 1) * b], steps, dev))
+    shards = [_Shard.new(cap, lanes[me * b:(me + 1) * b], steps, dev)
               for me, dev in enumerate(mesh)]
     schedule = ring_schedule(d)
 
@@ -359,25 +420,28 @@ def ring_shard_keys(packed: np.ndarray, max_dist: int, *, mesh,
     # Step-major: every "slot received" event is recorded before the
     # iteration that waits for it.
     for me, s, q, upper_only, emits in schedule:
-        ring = shards[me].ring
+        sh = shards[me]
         if s + 1 < steps:
-            ring.forward(shards[(me - 1) % d].ring, s)
+            sh.ring.forward(shards[(me - 1) % d].ring, s)
         if emits:
-            with ring.computing(s):
-                _step(ring.slots[0], ring.slots[s], shards[me].buf,
-                      **step_kw(me, q, upper_only))
+            with sh.ring.computing(s):
+                _step(sh.ring.slots[0], sh.ring.slots[s], sh.buf,
+                      **sh.step_args(s), **step_kw(me, q, upper_only))
 
     keys = []
     for me, sh in enumerate(shards):
         n = _count(sh)
         if n > len(sh.buf.keys):
             # Exact-capacity rerun of this shard's steps on the slots it
-            # still holds, on the device's current stream.
+            # still holds, on the device's current stream, with fresh work
+            # counters.
             sh.buf = _PairBuffer.new(n, sh.ring.dev)
+            if sh.work is not None:
+                sh.work = torch.zeros_like(sh.work)
             for me2, s, q, upper_only, emits in schedule:
                 if me2 == me and emits:
                     _step(sh.ring.slots[0], sh.ring.slots[s], sh.buf,
-                          **step_kw(me, q, upper_only))
+                          **sh.step_args(s), **step_kw(me, q, upper_only))
         keys.append(sh.buf.keys[:n])
     return keys
 

@@ -42,9 +42,11 @@ summary counts is that message or a CUDA call failing after it.  An
 zero errors under it is not shown.  In every case the cases run once more in this process with guards that the card
 can check itself (:func:`guarded_k1`, :func:`guarded_k2`): the table sits
 between guard rows, its padding rows (and those guard rows) hold copies
-of real words, the pair buffer and the counter are followed by sentinel
-words.  A read of padding or of a neighbouring row that reached a result
-would change the pairs; a write past the buffer, or a slot left
+of real words, the kernel reads an encoding of that whole store (its
+rows past the table's words are encoded guard rows, not zeros), the pair
+buffer and the counter are followed by sentinel words.  A read of
+padding or of a neighbouring row that reached a result would change the
+pairs; a write past the buffer, or a slot left
 unwritten, shows in the sentinels.  What these guards do not see: a
 read outside the table that changes nothing, and races in shared memory
 (racecheck's domain).  For races, :func:`repeat_cases` stands in: every
@@ -52,7 +54,8 @@ case launched REPEATS (20) times with the first capacity forced to 16
 pairs (each call overflows and relaunches), each result bit for bit
 equal to the first run's and the plain version's; on a card K1 also
 takes :func:`k1_busy_case`, where every persistent CTA walks several
-units and its rings of stages and panels wrap.
+units and its rings of stages and panels wrap, and K2 reads poisoned
+encoded blocks.
 
 The last line is one JSON summary; the exit code is 1 if any check found
 an error or a mismatch (a sanitizer that cannot attach is not an error,
@@ -477,28 +480,47 @@ def guarded_k1(c: dict, device) -> int:
     return len(want)
 
 
+def _k2_kw(c: dict) -> dict:
+    return {k: c[k] for k in ("row_base", "col_base", "u", "max_dist",
+                              "upper_only")}
+
+
+def _poisoned_k2(c: dict, device):
+    """The case's two blocks with their rows past u and their guard rows
+    poisoned (:func:`_poisoned`), and their encoded tables built from the
+    whole stores, guard rows included: the rows past b up to the table's
+    row multiple, which the ring's own tables hold as zeros, are encoded
+    poisoned guard rows here, as the rows past u are."""
+    from ..ops import simplex_encode as E
+
+    b = len(c["rows"])
+    blocks, tables = [], []
+    for name, base in (("rows", c["row_base"]), ("cols", c["col_base"])):
+        bad = base + np.arange(b) >= c["u"]
+        store, lanes = _poisoned(c[name], bad, device)
+        blocks.append(lanes)
+        tables.append(E.encode(store)[GUARD_ROWS:GUARD_ROWS
+                                      + E.table_rows(b)])
+    return blocks, tuple(tables)
+
+
 def guarded_k2(c: dict, device) -> int:
-    """One K2 step through a direct launch: each block's rows past u and
-    the guard rows poisoned, guarded buffers at the exact capacity and at
+    """One K2 step through a direct launch over poisoned encoded blocks
+    (:func:`_poisoned_k2`), guarded buffers at the exact capacity and at
     half of it; returns the pair count."""
     import torch
 
     from ..parallel import cuda_ring as R
 
-    b = len(c["rows"])
-    kw = {k: c[k] for k in ("row_base", "col_base", "u", "max_dist",
-                            "upper_only")}
+    kw = _k2_kw(c)
     a, bb = R.ring_block_pairs_plain(_t(c["rows"], "cpu"),
                                      _t(c["cols"], "cpu"), **kw)
     want = np.sort((a * max(c["u"], 1) + bb).numpy())
-    blocks = []
-    for name, base in (("rows", c["row_base"]), ("cols", c["col_base"])):
-        bad = base + np.arange(b) >= c["u"]
-        blocks.append(_poisoned(c[name], bad, device)[1])
+    blocks, tables = _poisoned_k2(c, device)
     for cap in (len(want), len(want) // 2):
         keys, counter = _guarded_buffers(cap, 1, device)
         R._step(blocks[0], blocks[1], R._PairBuffer(keys[:cap], counter[:1]),
-                **kw)
+                tables=tables, **kw)
         torch.cuda.synchronize(device)
         _check_guards(f"K2 {c['name']} (capacity {cap})", keys, counter, 1,
                       cap, len(want), want)
@@ -545,8 +567,7 @@ def run_kernel_cases(device, guards: bool | None = None) -> dict:
         k1["pairs"] += len(want[0])
     k2 = out["ring_sweep"]
     for c in k2_cases():
-        kw = {k: c[k] for k in ("row_base", "col_base", "u", "max_dist",
-                                "upper_only")}
+        kw = _k2_kw(c)
         want = R.ring_block_pairs_plain(_t(c["rows"], "cpu"),
                                         _t(c["cols"], "cpu"), **kw)
         got = R.ring_block_pairs(_t(c["rows"], device),
@@ -573,7 +594,8 @@ def repeat_cases(device, repeats: int = REPEATS) -> dict:
     first capacity forced to 16 pairs (so that each call overflows its
     buffer, counts past it and relaunches), each result compared bit for
     bit with the first run's and with the plain version; on a card K1
-    also takes :func:`k1_busy_case`.  A race on the shared-memory hit
+    also takes :func:`k1_busy_case`, and K2 reads poisoned encoded blocks
+    (:func:`_poisoned_k2`).  A race on the shared-memory hit
     buffer, its flush, the global counter, or K1's rings of TMA-filled
     stages and panels and their mbarriers that changed a pair or a count
     would show as a difference between runs.  Returns launches and cases
@@ -615,14 +637,14 @@ def repeat_cases(device, repeats: int = REPEATS) -> dict:
     cap0, R.CAP_START = R.CAP_START, 16
     try:
         for c in k2_cases():
-            kw = {k: c[k] for k in ("row_base", "col_base", "u", "max_dist",
-                                    "upper_only")}
+            kw = _k2_kw(c)
             want = R.ring_block_pairs_plain(_t(c["rows"], "cpu"),
                                             _t(c["cols"], "cpu"), **kw)
-            rows, cols = _t(c["rows"], device), _t(c["cols"], device)
-            same_every_time(f"K2 {c['name']}",
-                            lambda: R.ring_block_pairs(rows, cols, **kw),
-                            want, out["ring_sweep"])
+            (rows, cols), tables = _poisoned_k2(c, device)
+            same_every_time(
+                f"K2 {c['name']}",
+                lambda: R.ring_block_pairs(rows, cols, tables=tables, **kw),
+                want, out["ring_sweep"])
     finally:
         R.CAP_START = cap0
     print(f"check_native repeat cases on {device} (first capacity 16, "
@@ -714,7 +736,7 @@ def device_half(device) -> dict:
     guarded cases in this process (module docstring)."""
     from .. import _build
 
-    _build.build_all(("hamming_sweep", "ring_sweep"))
+    _build.build_all(("hamming_sweep", "ring_sweep", "simplex_encode"))
     tools = {}
     for tool in SANITIZER_TOOLS:
         tools[tool] = sanitize(tool)

@@ -15,9 +15,11 @@ exact capacity); then, in ``--rounds`` rounds that alternate the order
 (current, POPC, POPC, current, ...), each kernel alone (its launches
 into buffers allocated beforehand, between CUDA events, as
 ``chip_smoke.py::sweep_kernel_ms`` times them) and with max_dist -1
-(no pair passes), and the current K1 through its wrapper.  Prints one
-JSON line per shape and the card's nvidia-smi line; with ``--json`` the
-lines are also written to FILE.  Needs a CUDA card and nvcc.
+(no pair passes), and the current K1 through its wrapper, with its CUDA
+encoder and with the encoder's plain version in its place
+(``wrapper_plain_encode_ms``: the wrapper as it encoded before the
+encoder).  Prints one JSON line per shape and the card's nvidia-smi
+line; with ``--json`` the lines are also written to FILE.  Needs a CUDA card and nvcc.
 
 The shapes (tables of ``tools/ring_profile.sample_table``, inputs of the
 neighbour engines, as phases 3 and 6 of ``chip_smoke.py`` build them):
@@ -150,6 +152,41 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int, kernel: str, launches: int) -> float | None:
+    """Mean device milliseconds of kernel ``kernel`` a run of ``fn()``,
+    from a ``torch.profiler`` trace of ``reps`` runs after one warm-up:
+    the summed durations of the trace's kernel events whose name holds
+    ``kernel``, over ``reps``.  The host's set-up between launches is not
+    in it.  None where the trace holds other than ``launches`` such events
+    a run (a trace that lost events)."""
+    import os
+    import tempfile
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    durs = [e["dur"] for e in events if e.get("ph") == "X"
+            and e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    if len(durs) != reps * launches:
+        return None
+    return sum(durs) / reps / 1e3
+
+
 def compare_shape(name: str, inp: dict, popc, rounds: int,
                   reps: int) -> dict:
     """Both kernels at one shape: pairs against the plain version, then
@@ -211,7 +248,19 @@ def compare_shape(name: str, inp: dict, popc, rounds: int,
         raise AssertionError(f"{name}: the POPC K1 differs from the plain "
                              f"version")
     times = {k: [] for k in ("kernel_ms", "no_hit_kernel_ms", "popc_ms",
-                             "popc_no_hit_ms", "wrapper_ms")}
+                             "popc_no_hit_ms", "wrapper_ms",
+                             "wrapper_plain_encode_ms")}
+
+    def wrapper_plain_encode():
+        # The wrapper with the encoder's plain version in the CUDA
+        # encoder's place: how the wrapper encoded before the encoder.
+        K.encode = K.encode_table
+        try:
+            K.hamming_tile_pairs(lanes, tp, ids=ids, **kw)
+        finally:
+            K.encode = encode
+
+    encode = K.encode
     for r in range(rounds):
         order = ("current", "popc") if r % 2 == 0 else ("popc", "current")
         for which in order:
@@ -222,6 +271,8 @@ def compare_shape(name: str, inp: dict, popc, rounds: int,
                 times["wrapper_ms"].append(time_cuda(
                     lambda: K.hamming_tile_pairs(lanes, tp, ids=ids, **kw),
                     max(reps // 4, 1)))
+                times["wrapper_plain_encode_ms"].append(time_cuda(
+                    wrapper_plain_encode, max(reps // 4, 1)))
             else:
                 times["popc_ms"].append(
                     time_cuda(popc_form(kw["max_dist"]), reps))

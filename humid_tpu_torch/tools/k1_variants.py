@@ -2,16 +2,26 @@
 one card, at the shapes of ``k1_compare``.
 
     python -m humid_tpu_torch.tools.k1_variants [--variants a,b,...]
-        [--shapes dense_1M,...] [--rounds 2] [--popc-src DIR] [--json FILE]
+        [--shapes dense_1M,...] [--rounds 2] [--popc-src DIR]
+        [--parent-src DIR] [--json FILE]
 
 Each variant is the package's ``csrc/`` copied to
 ``build/humid_tpu_torch/k1_variants/<name>/`` with the text replacements
-of :data:`VARIANTS` applied to ``hamming_sweep.cu`` and built there with
-``nvcc`` (a replacement that no longer matches the source raises).  For
+of :data:`VARIANTS` applied to ``hamming_sweep.cu`` or the pipeline it
+includes, ``tc_sweep.cuh`` (:data:`SOURCES`; each text must occur once in
+them), and ``hamming_sweep.cu`` built there with ``nvcc`` (a replacement
+that no longer matches the sources raises).  For
 each shape every variant's pairs must equal the plain version's; then,
 in ``--rounds`` rounds that reverse the order each time, each variant's
 kernel alone (its launches into buffers allocated beforehand, between
-CUDA events) and, with ``--popc-src``, the POPC form of ``k1_compare``.
+CUDA events; ``kernel_ms``) and, with ``--popc-src``, the POPC form of
+``k1_compare``; each variant's kernel also by its device time in a
+``torch.profiler`` trace of the same launches (``device_ms``,
+``k1_compare.device_ms``: without the host's set-up between launches).
+With ``--parent-src DIR`` the variant "parent" is DIR's own
+``hamming_sweep.cu`` and headers, built as they are: an earlier
+tensor-core K1 with the same C entry (e.g. unpacked from a commit with
+``git show``), timed in the same turns.
 One JSON line per shape and the card's nvidia-smi line.  Needs a CUDA
 card and nvcc.
 """
@@ -27,12 +37,16 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from .k1_compare import SHAPES, build_popc, shape_inputs, time_cuda
+from .k1_compare import (SHAPES, build_popc, device_ms, shape_inputs,
+                         time_cuda)
 
 _SIMPLEX_K = "static constexpr int K = (48 * W + KSTEP - 1) / KSTEP * KSTEP;"
 
+#: The files of ``csrc/`` that the replacements apply to.
+SOURCES = ("hamming_sweep.cu", "tc_sweep.cuh")
+
 #: Variant name -> (encoding of the table, replacements in
-#: hamming_sweep.cu).  "current" is the source as it is.
+#: :data:`SOURCES`).  "current" is the source as it is.
 VARIANTS = {
     "current": ("simplex", []),
     # The one-hot encoding (4 channels a base, K = 64 w; the TPU kernel's
@@ -43,40 +57,48 @@ VARIANTS = {
         (_SIMPLEX_K, "static constexpr int K = 64 * W;"),
         ("  return (48 * w + KSTEP - 1) / KSTEP * KSTEP;",
          "  return 64 * w;"),
-        ("static constexpr int BN = K <= 96 ? 256",
-         "static constexpr int BN = K <= 128 ? 256"),
+        ("static constexpr int BN = K <= 96 && !NARROW ? 256",
+         "static constexpr int BN = K <= 128 && !NARROW ? 256"),
         ('static_assert(SMEM <= SMEM_LIMIT, "shared memory");', "")]),
-    # 128-column products at w <= 2 (64 accumulators a thread).
+    # 128-column products at w <= 2 (64 accumulators a thread) for every
+    # list, or for none (the current source takes them for short lists).
     "bn128": ("simplex", [
-        ("static constexpr int BN = K <= 96 ? 256 : K <= 192 ? 128 : 64;",
-         "static constexpr int BN = K <= 192 ? 128 : 64;")]),
+        ("static constexpr int BN = K <= 96 && !NARROW ? 256 : K <= 192 ? "
+         "128 : 64;", "static constexpr int BN = K <= 192 ? 128 : 64;")]),
+    "wide_only": ("simplex", [
+        ("    if (tc::plan<W>(nb, a.tile, a.tile).units < tc::MIN_UNITS)",
+         "    if (false)")]),
     # Row panels of 256 rows (4 sub-blocks) at w <= 2.
     "sub4": ("simplex", [
         ("static constexpr int SUB = bytes(8, 2, 4) <= SMEM_LIMIT   ? 8",
          "static constexpr int SUB = bytes(8, 2, 4) < 0 ? 8")]),
     # The hit buffer flushed after every stage that added a key.
     "flush_every_stage": ("simplex", [
-        ("                humid::HIT_CAP / 2);", "                1u);")]),
+        ("                HIT_CAP / 2);", "                1u);")]),
     # The span halved until 2,048 units (the POPC form's list length).
     "min_units_2048": ("simplex", [
         ("constexpr int MIN_UNITS = 512;", "constexpr int MIN_UNITS = 2048;")]),
 }
 
 
-def build_variant(name: str, out_root: Path):
-    """Build variant ``name`` (:data:`VARIANTS`) and bind its C entry."""
+def build_variant(name: str, out_root: Path, src: Path | None = None):
+    """Build variant ``name`` (:data:`VARIANTS`), or the sources in ``src``
+    as they are, and bind its C entry."""
     from .. import _build
 
     d = out_root / name
     shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(_build.CSRC, d)
+    shutil.copytree(src or _build.CSRC, d)
+    texts = {f: (d / f).read_text() for f in SOURCES if src is None}
+    for old, new in (VARIANTS[name][1] if src is None else []):
+        where = [f for f in SOURCES if old in texts[f]]
+        if sum(texts[f].count(old) for f in SOURCES) != 1:
+            raise ValueError(f"variant {name}: {old!r} is not once in "
+                             f"{', '.join(SOURCES)}")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    for f, text in texts.items():
+        (d / f).write_text(text)
     src = d / "hamming_sweep.cu"
-    text = src.read_text()
-    for old, new in VARIANTS[name][1]:
-        if old not in text:
-            raise ValueError(f"variant {name}: {old!r} is not in the source")
-        text = text.replace(old, new)
-    src.write_text(text)
     lib = d / "libhamming_sweep.so"
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
                            str(src)], capture_output=True, text=True)
@@ -169,12 +191,17 @@ def run_shape(name, inp, fns, popc, rounds: int, reps: int) -> dict:
         runs["popc"] = popc_run
     order = list(runs)
     times = {v: [] for v in order}
+    device = {v: [] for v in fns}
+    launches = -(-len(tp) // K.CHUNK_PAIRS)
     for r in range(rounds):
         for v in (order if r % 2 == 0 else order[::-1]):
             times[v].append(time_cuda(runs[v], reps))
+            if v in device:
+                device[v].append(device_ms(runs[v], reps,
+                                           "hamming_sweep", launches))
     out = {"shape": name, "w": w, "pairs": len(want_keys),
            "max_abs_err": 0, "rounds": rounds, "reps": reps,
-           "kernel_ms": times}
+           "kernel_ms": times, "device_ms": device}
     print(json.dumps(out), flush=True)
     return out
 
@@ -186,6 +213,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--popc-src", type=Path)
+    ap.add_argument("--parent-src", type=Path)
     ap.add_argument("--json", type=Path)
     args = ap.parse_args(argv)
     import torch
@@ -196,10 +224,13 @@ def main(argv=None) -> int:
     from .. import _build
 
     root = _build.BUILD_DIR / "k1_variants"
-    names = args.variants.split(",")
-    with ThreadPoolExecutor(max_workers=len(names)) as ex:
-        built = list(ex.map(lambda v: build_variant(v, root), names))
-    fns = {v: (fn, VARIANTS[v][0]) for v, fn in zip(names, built)}
+    jobs = [(v, None) for v in args.variants.split(",")]
+    if args.parent_src is not None:
+        jobs.append(("parent", args.parent_src.resolve()))
+    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+        built = list(ex.map(lambda j: build_variant(j[0], root, j[1]), jobs))
+    fns = {v: (fn, VARIANTS[v][0] if src is None else "simplex")
+           for (v, src), fn in zip(jobs, built)}
     popc = None if args.popc_src is None else build_popc(
         args.popc_src.resolve(), _build.BUILD_DIR / "k1_compare")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

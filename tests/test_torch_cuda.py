@@ -1,13 +1,13 @@
 """Tests of humid_tpu_torch that need a CUDA card (``cuda`` marker): the
-hand-written Hamming sweep and ring kernels against their plain PyTorch
-versions on the card, the banded-Levenshtein programs and the neighbour
-engines of both metrics (the multi-stream rings and the pigeonhole runs
-engines included) on the card against the CPU, device unique counting and
-the fused device-resident route against the CPU (with the host waits it
-may make and the reuse of its pinned staging buffers), the device
-directional clustering against the CPU (one host wait a round) and
-through run() against the default route, and the CLI and the bench
-(``humid_tpu_torch.tools.bench``) on the card against
+hand-written Hamming sweep and ring kernels and their encoder against
+their plain PyTorch versions on the card, the banded-Levenshtein
+programs and the neighbour engines of both metrics (the multi-stream
+rings and the pigeonhole runs engines included) on the card against the
+CPU, device unique counting and the fused device-resident route against
+the CPU (with the host waits it may make and the reuse of its pinned
+staging buffers), the device directional clustering against the CPU (one
+host wait a round) and through run() against the default route, and the
+CLI and the bench (``humid_tpu_torch.tools.bench``) on the card against
 baseline/humid_ref.
 
 They skip where torch.cuda.is_available() is False.  This file imports no
@@ -35,6 +35,7 @@ from humid_tpu_torch.ops import edit as E
 from humid_tpu_torch.ops import fused as F
 from humid_tpu_torch.ops import neighbors as N
 from humid_tpu_torch.ops import runs_device as RD
+from humid_tpu_torch.ops import simplex_encode as SE
 from humid_tpu_torch.ops import unique as U
 from humid_tpu_torch.ops import unique_words
 from humid_tpu_torch import parallel as P
@@ -178,6 +179,25 @@ def test_kernel_matches_plain_by_width_and_tile(length, tile, cuda_device):
     kw = dict(tile=tile, part_stride=4096, part_valid=3900, max_dist=2)
     pa, pb = K.hamming_tile_pairs_plain(lanes, tp, **kw)
     assert len(pa) > 0 and int((pb % 4096).max()) < 3900
+    a, b = K.hamming_tile_pairs(lanes, tp, **kw)
+    assert torch.equal(a, pa) and torch.equal(b, pb)
+
+
+@pytest.mark.parametrize("n_pairs", [300, 666])  # short list, long list
+@pytest.mark.parametrize("length", [14, 24])  # w = 1, 2
+def test_kernel_product_widths_by_list_length(length, n_pairs, cuda_device):
+    """Kernel == plain on both sides of the run-time choice of product
+    width at w <= 2: tile pairs of 256 rows are one unit each, so 300 of
+    them (fewer than MIN_UNITS = 512) launch the 128-column instance and
+    666 the 256-column one."""
+    rng = np.random.default_rng(700 + length + n_pairs)
+    rows = _words(rng, 36 * 256, length, pool=900)
+    lanes, tp = _tensors(rows, _upper_pairs(36)[:n_pairs], cuda_device)
+    assert len(tp) == n_pairs
+    kw = dict(tile=256, part_stride=len(rows), part_valid=len(rows),
+              max_dist=1)
+    pa, pb = K.hamming_tile_pairs_plain(lanes, tp, **kw)
+    assert len(pa) > 0
     a, b = K.hamming_tile_pairs(lanes, tp, **kw)
     assert torch.equal(a, pa) and torch.equal(b, pb)
 
@@ -473,6 +493,73 @@ def test_ring_kernel_rejects_too_many_lanes(cuda_device):
                            upper_only=True)
 
 
+@pytest.mark.parametrize("n", [1, 63, 64, 1000, 44699])
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 16])
+def test_encoder_matches_encode_table(w, n, cuda_device):
+    """The CUDA encoder writes encode_table's bytes, byte for byte: the
+    channels, the zero columns past 48 w and the zero rows past n, into a
+    buffer that held other bytes too."""
+    rng = np.random.default_rng(10 * w + n)
+    lanes = torch.from_numpy(rng.integers(0, 2**32, (n, w), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(cuda_device)
+    want = SE.encode_table(lanes)
+    launches = SE.LAUNCHES
+    assert torch.equal(SE.encode(lanes), want)
+    out = torch.full(want.shape, 7, dtype=torch.int8, device=cuda_device)
+    assert SE.encode(lanes, out=out) is out
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert SE.LAUNCHES == launches + 2
+
+
+_RING_MAX_DISTS = {"0": lambda w: 0, "12w": lambda w: 12 * w,
+                   "16w": lambda w: 16 * w}
+
+
+@pytest.mark.parametrize("upper_only", [True, False])
+@pytest.mark.parametrize("which", list(_RING_MAX_DISTS))
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 7, 12, 16])
+def test_ring_kernel_by_width_and_max_dist(w, which, upper_only,
+                                           cuda_device):
+    """b = 1000 (no multiple of 64), w = 1-16, max_dist 0 (equal words
+    only), 12 w (the threshold falls to 0: the encoded tables' zero rows
+    would pass) and 16 w (every valid pair): the kernel == plain, with u
+    cutting the column block; and max_dist -1 finds nothing."""
+    rng = np.random.default_rng(500 + 3 * w)
+    b = 1000
+    words = _words(rng, 2 * b, 16 * w - 3, pool=40)
+    words[rng.integers(0, 2 * b, 300)] = words[0]  # some equal words
+    both = torch.from_numpy(np.ascontiguousarray(words).view(
+        np.int32)).to(cuda_device)
+    rows = both[b:] if upper_only else both[:b]
+    cols = both[b:]
+    kw = dict(row_base=b if upper_only else 0, col_base=b, u=b + 777,
+              max_dist=_RING_MAX_DISTS[which](w), upper_only=upper_only)
+    pa, pb = R.ring_block_pairs_plain(rows, cols, **kw)
+    assert len(pa) > 0 and int(pb.max()) < kw["u"]
+    a, bb = R.ring_block_pairs(rows, cols, **kw)
+    assert torch.equal(a, pa) and torch.equal(bb, pb)
+    buf = R._PairBuffer.new(16, cuda_device)
+    R._step(rows, cols, buf, tables=(SE.encode(rows), SE.encode(cols)),
+            **{**kw, "max_dist": -1})
+    assert int(buf.counter.item()) == 0
+
+
+def test_ring_kernel_all_equal_words_overflow_the_hit_buffer(cuda_device):
+    """Every pair of 3,000 equal words matches: each warpgroup's buffer
+    fills in one product and the rest go out one by one."""
+    word = _words(np.random.default_rng(2), 1, 24)
+    rows = torch.from_numpy(np.repeat(word, 3000, axis=0).view(
+        np.int32)).to(cuda_device)
+    for upper_only in (True, False):
+        kw = dict(row_base=0, col_base=0 if upper_only else 3000, u=6000,
+                  max_dist=0, upper_only=upper_only)
+        pa, pb = R.ring_block_pairs_plain(rows, rows, **kw)
+        assert len(pa) == (3000 * 2999 // 2 if upper_only else 3000 ** 2)
+        a, b = R.ring_block_pairs(rows, rows, **kw)
+        assert torch.equal(a, pa) and torch.equal(b, pb)
+
+
 @pytest.mark.parametrize("cap_start", [1 << 22, 16])
 def test_multi_stream_ring_matches_one_shard(cap_start, cuda_device,
                                              monkeypatch):
@@ -488,13 +575,16 @@ def test_multi_stream_ring_matches_one_shard(cap_start, cuda_device,
     monkeypatch.setattr(R, "CAP_START", cap_start)
     for d in (1, 2, 3, 4, 8):
         mesh = P.data_mesh(d, cuda_device)
-        launches = R.LAUNCHES
+        launches, encodes = R.LAUNCHES, SE.LAUNCHES
         for _ in range(2):
             got = P.sharded_neighbor_pairs_ring(uniq, 2, word_length=24,
                                                 mesh=mesh)
             np.testing.assert_array_equal(got[0], want[0])
             np.testing.assert_array_equal(got[1], want[1])
         assert R.LAUNCHES > launches
+        # Each step encodes the one block it reads anew (the own block at
+        # step 0, the received one after): one encode a launch.
+        assert SE.LAUNCHES - encodes == R.LAUNCHES - launches
 
 
 @pytest.mark.parametrize("strategy", ["ring", "sharded", "sharded_bucketed"])

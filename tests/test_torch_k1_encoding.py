@@ -174,12 +174,13 @@ def test_kernel_arithmetic_matches_pallas(length, max_dist):
 
 def test_k1_variants_apply_to_the_source():
     """Every design variant that tools/k1_variants.py builds still finds
-    its text in csrc/hamming_sweep.cu (a replacement that no longer
-    matches would raise on the card)."""
+    its text once in csrc/hamming_sweep.cu and the pipeline it includes,
+    csrc/tc_sweep.cuh (a replacement that no longer matches would raise
+    on the card)."""
     from humid_tpu_torch import _build
-    from humid_tpu_torch.tools.k1_variants import VARIANTS
+    from humid_tpu_torch.tools.k1_variants import SOURCES, VARIANTS
 
-    src = (_build.CSRC / "hamming_sweep.cu").read_text()
+    src = "".join((_build.CSRC / f).read_text() for f in SOURCES)
     for name, (encoding, replacements) in VARIANTS.items():
         assert encoding in ("simplex", "onehot"), name
         for old, _ in replacements:
