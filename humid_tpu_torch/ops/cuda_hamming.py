@@ -47,6 +47,7 @@ import functools
 
 import torch
 
+from ..phaselog import no_span
 from .hamming import lanes_u32, mismatch_counts
 from .simplex_encode import (  # noqa: F401 (the encoding's names here too)
     SIMPLEX, TABLE_ROWS, encode, encode_table, pass_threshold, table_width)
@@ -204,40 +205,47 @@ def _read_back(counter: torch.Tensor) -> list[int]:
     return host.tolist()
 
 
-def _sweep(lanes, pairs, cap, **kw):
+def _sweep(lanes, pairs, cap, span=no_span, **kw):
     """One pass over ``pairs`` into a fresh [cap] key buffer -> (keys, true
     match count).  The kernel on CUDA tensors; on CPU tensors the plain
-    version fills the buffer the way the kernel would."""
+    version fills the buffer the way the kernel would.  The host's wait
+    for the result (the read-back, or the plain version) is the span
+    "wait K1"."""
     dev = lanes.device
     keys = torch.empty(cap, dtype=torch.int64, device=dev)
     if dev.type == "cpu":
-        a, b = hamming_tile_pairs_plain(lanes, pairs, **kw)
+        with span("wait K1"):
+            a, b = hamming_tile_pairs_plain(lanes, pairs, **kw)
         k = min(cap, len(a))
         keys[:k] = a[:k] * lanes.shape[0] + b[:k]
         return keys, len(a)
     counter = torch.zeros(2, dtype=torch.int64, device=dev)
     _launch(lanes, pairs, keys, counter, **kw)
-    n, bad = _read_back(counter)
+    with span("wait K1"):
+        n, bad = _read_back(counter)
     if bad:
         raise ValueError(_BAD_TILE_PAIR)
     return keys, n
 
 
-def _sweep_chunk(lanes, pairs, outs, cap_start, **kw) -> None:
+def _sweep_chunk(lanes, pairs, outs, cap_start, span=no_span,
+                 **kw) -> None:
     """Sweep one chunk of tile pairs into a buffer of ``cap_start`` keys
     (fewer where the chunk cannot fill it), appending its keys to
     ``outs``: relaunch once with the exact capacity when the buffer
     overflowed, or split the chunk when that capacity would exceed
     MAX_CAP."""
     cap = max(1, min(cap_start, len(pairs) * kw["tile"] ** 2))
-    keys, n = _sweep(lanes, pairs, cap, **kw)
+    keys, n = _sweep(lanes, pairs, cap, span=span, **kw)
     if n > cap:
         if n > MAX_CAP and len(pairs) > 1:
             half = len(pairs) // 2
-            _sweep_chunk(lanes, pairs[:half], outs, cap_start, **kw)
-            _sweep_chunk(lanes, pairs[half:], outs, cap_start, **kw)
+            _sweep_chunk(lanes, pairs[:half], outs, cap_start, span=span,
+                         **kw)
+            _sweep_chunk(lanes, pairs[half:], outs, cap_start, span=span,
+                         **kw)
             return
-        keys, n = _sweep(lanes, pairs, n, **kw)
+        keys, n = _sweep(lanes, pairs, n, span=span, **kw)
     # A slice would keep the whole buffer (CAP_START keys) alive: 2^23
     # uniques make 2,049 chunks, 128 GiB of buffers.
     outs.append(keys[:n].clone() if n < len(keys) else keys)
@@ -246,7 +254,7 @@ def _sweep_chunk(lanes, pairs, outs, cap_start, **kw) -> None:
 def hamming_tile_pairs(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
                        tile: int, part_stride: int, part_valid: int,
                        max_dist: int, ids: torch.Tensor | None = None,
-                       cap_start: int | None = None):
+                       cap_start: int | None = None, span=None):
     """All matching (a, b) of the tile-pair list (module docstring),
     int64, sorted by (a, b).  CUDA tensors run the hand-written kernel
     (``csrc/hamming_sweep.cu``) over one encoded table of ``lanes``
@@ -254,8 +262,12 @@ def hamming_tile_pairs(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
     pairs, each
     launch into a key buffer of ``cap_start`` pairs at first (default
     CAP_START; an overflow costs one relaunch, never a pair); CPU tensors
-    run :func:`hamming_tile_pairs_plain` through the same buffers."""
+    run :func:`hamming_tile_pairs_plain` through the same buffers.
+    ``span`` (a :meth:`..phaselog.PhaseLog.spans_under` callable; None
+    times nothing) names the waits for each launch ("wait K1") and the
+    sort ("pairs")."""
     _check(lanes, tile_pairs, tile, part_stride, part_valid, max_dist, ids)
+    span = span or no_span
     kw = dict(tile=tile, part_stride=part_stride, part_valid=part_valid,
               max_dist=max_dist, ids=ids)
     if lanes.device.type == "cuda" and len(tile_pairs):
@@ -264,9 +276,10 @@ def hamming_tile_pairs(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
     outs: list = []
     for lo in range(0, len(tile_pairs), CHUNK_PAIRS):
         _sweep_chunk(lanes, tile_pairs[lo:lo + CHUNK_PAIRS], outs,
-                     cap_start, **kw)
+                     cap_start, span=span, **kw)
     if not outs:
         empty = torch.zeros(0, dtype=torch.int64, device=lanes.device)
         return empty, empty.clone()
-    return _sorted_keys(outs[0] if len(outs) == 1 else torch.cat(outs),
-                        lanes.shape[0])
+    with span("pairs"):
+        return _sorted_keys(outs[0] if len(outs) == 1 else torch.cat(outs),
+                            lanes.shape[0])

@@ -60,6 +60,7 @@ import torch
 from .. import words as W
 from .._device import resolve_device
 from .._util import avail_bytes, concat_aranges
+from ..phaselog import no_span
 from . import edit as E
 from .cuda_hamming import (_sorted_pairs, hamming_tile_pairs,
                            hamming_tile_pairs_plain)
@@ -182,7 +183,7 @@ def record_impl(info: dict | None, impl: str | None, *,
 
 def sweep(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
           impl: str | None = None, word_length: int | None = None,
-          cap_total: int | None = None, **kw):
+          cap_total: int | None = None, span=None, **kw):
     """The tile sweep (the contract of
     :func:`.cuda_hamming.hamming_tile_pairs`; ``kw`` its ``tile``,
     ``part_stride``, ``part_valid``, ``max_dist``, ``ids``) by ``impl``
@@ -191,14 +192,16 @@ def sweep(lanes: torch.Tensor, tile_pairs: torch.Tensor, *,
     launches and of the one-hot route.  On CPU tensors K1's wrapper runs
     the plain version (through that buffer), so "xor" and "pallas" are
     one route there; on a card "xor" is the plain version, which compacts
-    to the exact size."""
+    to the exact size.  ``span`` goes to K1's wrapper (its "wait K1" and
+    "pairs")."""
     check_impl(impl)
     if impl == "mxu":
         return onehot_tile_pairs(lanes, tile_pairs, word_length=word_length,
                                  cap_total=cap_total, **kw)
     if impl == "xor" and lanes.device.type != "cpu":
         return hamming_tile_pairs_plain(lanes, tile_pairs, **kw)
-    return hamming_tile_pairs(lanes, tile_pairs, cap_start=cap_total, **kw)
+    return hamming_tile_pairs(lanes, tile_pairs, cap_start=cap_total,
+                              span=span, **kw)
 
 
 def sweep_tensors(rows: np.ndarray, tile_pairs: np.ndarray,
@@ -213,18 +216,23 @@ def sweep_tensors(rows: np.ndarray, tile_pairs: np.ndarray,
 
 
 def _tile_sweep(rows, tile_pairs, *, tile, u_pad, u, max_dist, device,
-                ids=None, impl=None, word_length=None, cap_total=None):
+                ids=None, impl=None, word_length=None, cap_total=None,
+                span=None):
     """Sweep ``tile_pairs`` over ``rows`` (partitions of ``u_pad`` rows,
     the first ``u`` of each real), with the run-id mask of ``ids`` ([N]
     int32 numpy) if given, by ``impl`` (:func:`sweep`); (a, b) int64
-    numpy, sorted."""
-    lanes, tp = sweep_tensors(rows, tile_pairs, device)
-    if ids is not None:
-        ids = torch.from_numpy(ids).to(device)
+    numpy, sorted.  ``span`` names the upload ("upload") and the copies
+    back ("pairs")."""
+    span = span or no_span
+    with span("upload"):
+        lanes, tp = sweep_tensors(rows, tile_pairs, device)
+        if ids is not None:
+            ids = torch.from_numpy(ids).to(device)
     a, b = sweep(lanes, tp, impl=impl, word_length=word_length,
                  cap_total=cap_total, tile=tile, part_stride=u_pad,
-                 part_valid=u, max_dist=max_dist, ids=ids)
-    return a.cpu().numpy(), b.cpu().numpy()
+                 part_valid=u, max_dist=max_dist, ids=ids, span=span)
+    with span("pairs"):
+        return a.cpu().numpy(), b.cpu().numpy()
 
 
 def dense_inputs(packed: np.ndarray, tile: int = 2048):
@@ -256,6 +264,7 @@ def find_neighbor_pairs(
     mesh=None,
     info: dict | None = None,
     shard: tuple[int, int] | None = None,
+    span=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """All unordered pairs (a, b), a < b, of unique words within
     ``max_dist``.
@@ -317,6 +326,10 @@ def find_neighbor_pairs(
         multi-process run passes the engine every process agreed on);
         the mesh strategies ignore it and search the whole table.  One
         part is no shard.
+      span: a span callable (:meth:`..phaselog.PhaseLog.spans_under`;
+        None times nothing) that the dense Hamming sweep opens around its
+        steps: "inputs" (rows and tile list), "upload", "wait K1" and
+        "pairs"; the other engines open none.
 
     Returns:
       (a, b): int64 arrays with a < b, sorted by (a, b).
@@ -401,13 +414,15 @@ def find_neighbor_pairs(
     if metric == "edit":
         return dense_edit_pairs(packed, max_dist, word_length=word_length,
                                 tile=tile, device=dev, shard=shard, info=info)
-    rows, tile_pairs, b, u_pad = dense_inputs(packed, tile)
-    tile_pairs = _stripe(tile_pairs, shard, b, info)
+    span = span or no_span
+    with span("inputs"):
+        rows, tile_pairs, b, u_pad = dense_inputs(packed, tile)
+        tile_pairs = _stripe(tile_pairs, shard, b, info)
     if not len(tile_pairs):
         return _empty_pairs()
     return _tile_sweep(rows, tile_pairs, tile=b, u_pad=u_pad, u=u,
                        max_dist=max_dist, device=dev, word_length=word_length,
-                       **sweep_opts)
+                       span=span, **sweep_opts)
 
 
 def _stripe(tile_pairs: np.ndarray, shard, tile: int, info: dict | None):

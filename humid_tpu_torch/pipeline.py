@@ -30,7 +30,6 @@ from __future__ import annotations
 import mmap as _mmap
 import os
 import re
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -51,7 +50,7 @@ from .io.writer import _ann_buffer, _build_output, compress_member
 from .ops import find_neighbor_pairs, pairs_to_csr, unique_words
 from .ops.neighbors import IMPL_ENV_VAR, STRATEGY_ENV_VAR, _combined_u64
 from .ops.unique import UNIQUE_ENV_VAR, _stable_argsort_u64
-from .phaselog import PhaseLog
+from .phaselog import PhaseLog, no_span
 from .stats import write_statistics
 
 
@@ -284,7 +283,8 @@ def overlap_unique(w: int) -> bool:
 
 def _pass1_overlapped(files, nt_to_take, header_umi_size, batch_records,
                       cache: list | None, want_inverse: bool,
-                      run_rows: int = 8 << 20, span_accs: list | None = None):
+                      run_rows: int = 8 << 20, span_accs: list | None = None,
+                      span=None):
     """Pass 1 with unique counting folded in (words of at most two lanes;
     the reference's ``_pass1_overlapped``).  The packing jobs also emit
     (64-bit key, global read index) pairs of the usable reads; runs of
@@ -294,7 +294,9 @@ def _pass1_overlapped(files, nt_to_take, header_umi_size, batch_records,
 
     Returns (total, usable, uniq [U, w] uint32, counts, first_occ (global
     read indices), inverse by read [total] (-1 for filtered reads) or
-    None)."""
+    None).  ``span`` (a :meth:`.PhaseLog.spans_under` callable) times the
+    main thread's waits, as in :func:`_pass1`."""
+    span = span or no_span
     w = W.num_lanes(header_umi_size + sum(nt_to_take))
     acc_k: list[np.ndarray] = []
     acc_i: list[np.ndarray] = []
@@ -328,7 +330,8 @@ def _pass1_overlapped(files, nt_to_take, header_umi_size, batch_records,
 
         def _drain():
             # In submission order, so span stitching sees stream order.
-            keys, gidx, spans = inflight.popleft().result()
+            with span("wait pack"):
+                keys, gidx, spans = inflight.popleft().result()
             if spans is not None:
                 for part, acc in zip(spans, span_accs):
                     _span_stitch(part, acc)
@@ -342,8 +345,8 @@ def _pass1_overlapped(files, nt_to_take, header_umi_size, batch_records,
                 acc_i.clear()
                 state["acc_n"] = 0
 
-        for batches in read_tuples(files, batch_records,
-                                   prefix_ks=nt_to_take):
+        for batches in _waited(read_tuples(files, batch_records,
+                                           prefix_ks=nt_to_take), span):
             if cache is not None:
                 cache.append(batches)
             inflight.append(ex.submit(_pack, batches, state["total"]))
@@ -381,9 +384,21 @@ def _pass1_overlapped(files, nt_to_take, header_umi_size, batch_records,
             inv if want_inverse else None)
 
 
+def _waited(batches, span):
+    """``batches`` (an iterator) with each wait for the next item in the
+    span "wait reader"."""
+    it = iter(batches)
+    while True:
+        with span("wait reader"):
+            item = next(it, None)
+        if item is None:
+            return
+        yield item
+
+
 def _pass1(files, nt_to_take, header_umi_size, batch_records,
            cache: list | None = None, pack_workers: int = 3,
-           span_accs: list | None = None, feeder=None):
+           span_accs: list | None = None, feeder=None, span=None):
     """Stream all files in lockstep; return (packed [N,W], filtered [N]).
     When ``cache`` is a list, parsed batch tuples are appended to it for
     reuse by the output pass.  When ``span_accs`` is given (one
@@ -396,7 +411,13 @@ def _pass1(files, nt_to_take, header_umi_size, batch_records,
     Packing (UMI gather + base encode, all GIL-releasing C calls) runs on
     a small thread pool so it overlaps the reader thread's
     decompression + framing; in-flight futures are bounded so memory
-    stays proportional to the pool size."""
+    stays proportional to the pool size.
+
+    ``span`` (a :meth:`.PhaseLog.spans_under` callable; None times
+    nothing) names the main thread's waits: "wait reader" (the reader's
+    queue), "wait pack" (a packing job) and "concat" (the final
+    concatenations)."""
+    span = span or no_span
     packed_parts: list[np.ndarray] = []
     filt_parts: list[np.ndarray] = []
 
@@ -415,7 +436,8 @@ def _pass1(files, nt_to_take, header_umi_size, batch_records,
     def _drain(fut):
         # FIFO drain == submission order, so span stitching sees batches
         # in stream order.
-        packed, filtered, spans = fut.result()
+        with span("wait pack"):
+            packed, filtered, spans = fut.result()
         if feeder is not None:
             # The feeder holds usable rows only (usable-index space).
             feeder.push(packed[~filtered] if filtered.any() else packed)
@@ -428,8 +450,8 @@ def _pass1(files, nt_to_take, header_umi_size, batch_records,
 
     with ThreadPoolExecutor(max_workers=max(1, pack_workers)) as ex:
         inflight: deque = deque()
-        for batches in read_tuples(files, batch_records,
-                                   prefix_ks=nt_to_take):
+        for batches in _waited(read_tuples(files, batch_records,
+                                           prefix_ks=nt_to_take), span):
             if cache is not None:
                 cache.append(batches)
             inflight.append(ex.submit(_work, batches))
@@ -441,13 +463,15 @@ def _pass1(files, nt_to_take, header_umi_size, batch_records,
         # The last flush can also find the budget short: raise here, inside
         # the caller's fallback.
         feeder.finish()
-        return None, (np.concatenate(filt_parts) if filt_parts
-                      else np.zeros(0, bool))
+        with span("concat"):
+            return None, (np.concatenate(filt_parts) if filt_parts
+                          else np.zeros(0, bool))
     if not filt_parts:
         wl = header_umi_size + sum(nt_to_take)
         return (np.zeros((0, W.num_lanes(wl)), np.uint32),
                 np.zeros(0, bool))
-    return np.concatenate(packed_parts), np.concatenate(filt_parts)
+    with span("concat"):
+        return np.concatenate(packed_parts), np.concatenate(filt_parts)
 
 
 def run(
@@ -495,7 +519,23 @@ def run(
     ``profile_dir`` (or $HUMID_TPU_TORCH_PROFILE) wraps the whole run in
     ``torch.profiler`` (CPU activity, and CUDA on a CUDA device) and
     writes one Chrome trace, ``trace_<pid>.json``, into that directory;
-    the phases appear in it as ``record_function`` ranges.
+    the phases and spans appear in it as ``record_function`` ranges.
+
+    ``PipelineResult.extra["timings"]`` holds seconds by name, a name
+    opened more than once summed (the tree in :mod:`.phaselog`).  The
+    phases, which also write the ``-l`` log's lines: "Determing
+    nucleotides to take", "Reading data", "Calculating neighbours using
+    Hamming distance" (or "... Levenshtein distance"), "Calculating
+    directional clusters" (or "Calculating maximum clusters"), "Writing
+    filtered results", "Writing annotated results" and "Calculating
+    count and neighbour stats" (around the statistics writer).  The
+    spans, which write no log line: "run" (the root, with no profiler
+    range), "set-up", "unique counting" (or "unique counting (fused)",
+    or "unique counting (overlapped)" inside "Reading data"),
+    "outputs"; below "Reading data" "Reading data/wait reader", ".../wait
+    pack" and ".../concat"; below the neighbour phase ".../inputs",
+    ".../upload", ".../wait K1", ".../pairs" (the dense sweep's steps)
+    and ".../csr".  A route that skips a step has no span for it.
     """
     if not files:
         raise InputError("at least one FastQ file required")
@@ -520,9 +560,26 @@ def run(
         prof.export_chrome_trace(
             os.path.join(profile_dir, f"trace_{os.getpid()}.json"))
         return res
-    tune_malloc()  # scoped here, not at package import
     log = PhaseLog(log_name)
-    res = PipelineResult()
+    with log.span("run", in_trace=False):
+        res = _run(log, dev, files, word_length=word_length,
+                   distance=distance, dir_name=dir_name, run_stats=run_stats,
+                   write_dedup=write_dedup, write_annotated=write_annotated,
+                   maximum=maximum, edit=edit, batch_records=batch_records,
+                   neighbor_opts=neighbor_opts, cache_records=cache_records)
+    res.extra["timings"] = log.totals()
+    log.close()
+    return res
+
+
+def _run(log: PhaseLog, dev, files, *, word_length, distance, dir_name,
+         run_stats, write_dedup, write_annotated, maximum, edit,
+         batch_records, neighbor_opts, cache_records) -> PipelineResult:
+    """The body of :func:`run`, inside its root span: every step lies in
+    a phase or a span of ``log`` (the tree in :mod:`.phaselog`)."""
+    with log.span("set-up"):
+        tune_malloc()  # scoped here, not at package import
+        res = PipelineResult()
 
     # --- nucleotide budgeting (humid.cc:38-59) ---
     t = log.start("Determing nucleotides to take")
@@ -531,73 +588,77 @@ def run(
         umi_len, len(files), word_length
     )
     log.end(t)
-    log.write(f"  header: {header_umi_size}")
-    for f, k in zip(files, nt_to_take):
-        log.write(f"\n  {f}: {k}")
-    log.write("\n")
 
-    # --- pass 1: read + pack (readData, humid.cc:70-103) ---
-    # Inputs up to 16GB parsed keep their record batches in memory so the
-    # output pass skips the second read entirely (the reference always
-    # re-reads, humid.cc:203-292).  The cap is deliberate even on
-    # large-memory hosts: materializing tens of GB of fresh record
-    # arrays costs first-touch page faults and page-cache eviction.
-    cache: list | None = None
-    if cache_records is None:
-        cache_records = (
-            _input_bytes_estimate(files) < min(1 << 34, avail_bytes() // 3)
-        )
-    if cache_records and (write_dedup or write_annotated):
-        cache = []
+    with log.span("set-up"):
+        log.write(f"  header: {header_umi_size}")
+        for f, k in zip(files, nt_to_take):
+            log.write(f"\n  {f}: {k}")
+        log.write("\n")
 
-    # Span cache: when the record cache does NOT fit but the inputs are
-    # plain (mmap-able) files, collect absolute record spans during pass
-    # 1 (8 bytes/record/file — plus 4 for header lengths in annotate
-    # mode) so pass 2 copies record bytes from the mmap instead of
-    # re-framing the whole input.
-    # HUMID_TPU_TORCH_SPAN_CACHE=1 forces it (testing), =0 disables.
-    span_env = os.environ.get("HUMID_TPU_TORCH_SPAN_CACHE")
-    span_accs = None
-    if ((write_dedup or write_annotated) and span_env != "0"
-            and (cache is None or span_env == "1")
-            and not any(is_gzip_file(f) for f in files)):
-        if span_env == "1":
-            cache = None  # force the span path end to end
-        per_rec = 12 if write_annotated else 8
-        budget = max(1 << 20,
-                     avail_bytes() // (32 * max(len(files), 1)) // per_rec)
-        span_accs = [_span_acc_new(budget, with_hdr=write_annotated)
-                     for _ in files]
+        # --- pass 1: read + pack (readData, humid.cc:70-103) ---
+        # Inputs up to 16GB parsed keep their record batches in memory so
+        # the output pass skips the second read entirely (the reference
+        # always re-reads, humid.cc:203-292).  The cap is deliberate even
+        # on large-memory hosts: materializing tens of GB of fresh record
+        # arrays costs first-touch page faults and page-cache eviction.
+        cache: list | None = None
+        if cache_records is None:
+            cache_records = (_input_bytes_estimate(files)
+                             < min(1 << 34, avail_bytes() // 3))
+        if cache_records and (write_dedup or write_annotated):
+            cache = []
 
-    engine = res.extra["engine"] = {}
-    wl = header_umi_size + sum(nt_to_take)
-    w = W.num_lanes(wl)
-    overlapped = overlap_unique(w)
-    feeder = None
-    if (not edit and distance >= 1 and not neighbor_opts and not overlapped
-            and not os.environ.get(STRATEGY_ENV_VAR)
-            and not os.environ.get(IMPL_ENV_VAR)
-            and not os.environ.get(UNIQUE_ENV_VAR)):
-        from ._backend import use_fused_pipeline
+        # Span cache: when the record cache does NOT fit but the inputs
+        # are plain (mmap-able) files, collect absolute record spans
+        # during pass 1 (8 bytes/record/file — plus 4 for header lengths
+        # in annotate mode) so pass 2 copies record bytes from the mmap
+        # instead of re-framing the whole input.
+        # HUMID_TPU_TORCH_SPAN_CACHE=1 forces it (testing), =0 disables.
+        span_env = os.environ.get("HUMID_TPU_TORCH_SPAN_CACHE")
+        span_accs = None
+        if ((write_dedup or write_annotated) and span_env != "0"
+                and (cache is None or span_env == "1")
+                and not any(is_gzip_file(f) for f in files)):
+            if span_env == "1":
+                cache = None  # force the span path end to end
+            per_rec = 12 if write_annotated else 8
+            budget = max(1 << 20, avail_bytes()
+                         // (32 * max(len(files), 1)) // per_rec)
+            span_accs = [_span_acc_new(budget, with_hdr=write_annotated)
+                         for _ in files]
 
-        # The router weighs the routes at the estimate the feeder is
-        # sized by: the reads are not counted yet.
-        n_est = reads_estimate(files)
-        if use_fused_pipeline(dev, n_est):
-            from .ops.fused import DeviceFeeder, fused_fits
+        engine = res.extra["engine"] = {}
+        wl = header_umi_size + sum(nt_to_take)
+        w = W.num_lanes(wl)
+        overlapped = overlap_unique(w)
+        feeder = None
+        if (not edit and distance >= 1 and not neighbor_opts
+                and not overlapped
+                and not os.environ.get(STRATEGY_ENV_VAR)
+                and not os.environ.get(IMPL_ENV_VAR)
+                and not os.environ.get(UNIQUE_ENV_VAR)):
+            from ._backend import use_fused_pipeline
 
-            engine["fused_fallback"] = int(not fused_fits(n_est, w, dev))
-            if not engine["fused_fallback"]:
-                feeder = DeviceFeeder(w, n_est, device=dev)
+            # The router weighs the routes at the estimate the feeder is
+            # sized by: the reads are not counted yet.
+            n_est = reads_estimate(files)
+            if use_fused_pipeline(dev, n_est):
+                from .ops.fused import DeviceFeeder, fused_fits
+
+                engine["fused_fallback"] = int(
+                    not fused_fits(n_est, w, dev))
+                if not engine["fused_fallback"]:
+                    feeder = DeviceFeeder(w, n_est, device=dev)
 
     t = log.start("Reading data")
+    pass1_span = log.spans_under("Reading data")
     if feeder is not None:
         from .ops.fused import FusedCapacityExceeded
 
         try:
             _, filtered = _pass1(files, nt_to_take, header_umi_size,
                                  batch_records, cache, span_accs=span_accs,
-                                 feeder=feeder)
+                                 feeder=feeder, span=pass1_span)
         except FusedCapacityExceeded:
             # The row estimate undershot: read again through the host
             # path with fresh caches (these saw only a prefix).
@@ -616,68 +677,68 @@ def run(
         res.total = int(len(filtered))
         res.usable = int((~filtered).sum())
         log.end(t)
-        t_uni = time.time()
-        fused = FusedPipeline(feeder, res.total, filtered, word_length=wl,
-                              max_dist=distance,
-                              want_inverse=write_annotated,
-                              want_labels=maximum)
-        res.unique = fused.unique()
-        engine["unique"] = "fused"
+        with log.span("unique counting (fused)"):
+            fused = FusedPipeline(feeder, res.total, filtered,
+                                  word_length=wl, max_dist=distance,
+                                  want_inverse=write_annotated,
+                                  want_labels=maximum)
+            res.unique = fused.unique()
+            engine["unique"] = "fused"
         # Counts, first occurrences and the inverse are read after the
         # neighbour programs are launched; the table stays on the device.
-        log.timings.append(("unique counting (fused)", time.time() - t_uni))
     elif overlapped:
-        # The span covers the read: unique counting rides inside it.
-        t_uni = time.time()
-        (res.total, res.usable, uniq, counts, first_occ,
-         inv_by_read) = _pass1_overlapped(
-            files, nt_to_take, header_umi_size, batch_records, cache,
-            want_inverse=write_annotated, span_accs=span_accs)
+        # The read is the unique counting here: its span lies inside the
+        # phase.
+        with log.span("unique counting (overlapped)"):
+            (res.total, res.usable, uniq, counts, first_occ,
+             inv_by_read) = _pass1_overlapped(
+                files, nt_to_take, header_umi_size, batch_records, cache,
+                want_inverse=write_annotated, span_accs=span_accs,
+                span=pass1_span)
         log.end(t)
         engine["unique"] = "overlapped"
-        log.timings.append(("unique counting (overlapped)",
-                            time.time() - t_uni))
         res.unique = len(uniq)
     else:
         packed, filtered = _pass1(files, nt_to_take, header_umi_size,
-                                  batch_records, cache, span_accs=span_accs)
+                                  batch_records, cache, span_accs=span_accs,
+                                  span=pass1_span)
         res.total = int(len(packed))
         res.usable = int((~filtered).sum())
         log.end(t)
 
         # --- exact duplicate counting (replaces trie leaf counts) ---
-        t_uni = time.time()
-        any_filtered = bool(filtered.any())
-        usable_packed = packed[~filtered] if any_filtered else packed
-        # The row->unique inverse (and with it the per-read cluster-id
-        # vector) is only needed for annotated output.
-        uniq, counts, first_occ_usable, inverse = unique_words(
-            usable_packed, want_inverse=write_annotated, device=dev,
-            info=engine)
-        # first_occ indexes usable rows; convert to global read indices.
-        if any_filtered:
-            usable_to_read = np.flatnonzero(~filtered)
-            first_occ = (usable_to_read[first_occ_usable]
-                         if len(first_occ_usable) else first_occ_usable)
-        else:
-            usable_to_read = None  # identity mapping
-            first_occ = first_occ_usable
-        inv_by_read = None
-        if write_annotated:
-            inv_by_read = np.full(res.total, -1, np.int64)
-            if res.total:
-                if any_filtered:
-                    inv_by_read[usable_to_read] = inverse
-                else:
-                    inv_by_read[:] = inverse
-        log.timings.append(("unique counting", time.time() - t_uni))
-        res.unique = len(uniq)
+        with log.span("unique counting"):
+            any_filtered = bool(filtered.any())
+            usable_packed = packed[~filtered] if any_filtered else packed
+            # The row->unique inverse (and with it the per-read
+            # cluster-id vector) is only needed for annotated output.
+            uniq, counts, first_occ_usable, inverse = unique_words(
+                usable_packed, want_inverse=write_annotated, device=dev,
+                info=engine)
+            # first_occ indexes usable rows; convert to global read
+            # indices.
+            if any_filtered:
+                usable_to_read = np.flatnonzero(~filtered)
+                first_occ = (usable_to_read[first_occ_usable]
+                             if len(first_occ_usable) else first_occ_usable)
+            else:
+                usable_to_read = None  # identity mapping
+                first_occ = first_occ_usable
+            inv_by_read = None
+            if write_annotated:
+                inv_by_read = np.full(res.total, -1, np.int64)
+                if res.total:
+                    if any_filtered:
+                        inv_by_read[usable_to_read] = inverse
+                    else:
+                        inv_by_read[:] = inverse
+            res.unique = len(uniq)
 
     # --- neighbour search (humid.cc:113-158) ---
-    if edit:
-        t = log.start("Calculating neighbours using Levenshtein distance")
-    else:
-        t = log.start("Calculating neighbours using Hamming distance")
+    phase = ("Calculating neighbours using Levenshtein distance" if edit
+             else "Calculating neighbours using Hamming distance")
+    t = log.start(phase)
+    search_span = log.spans_under(phase)
     if fused is not None:
         pa, pb = fused.neighbors(info=engine)
         counts, first_occ, inv_by_read = fused.tables()
@@ -685,10 +746,12 @@ def run(
         pa, pb = find_neighbor_pairs(uniq, distance,
                                      metric="edit" if edit else "hamming",
                                      word_length=word_length, device=dev,
-                                     info=engine, **(neighbor_opts or {}))
+                                     info=engine, span=search_span,
+                                     **(neighbor_opts or {}))
     res.counts = counts
-    indptr, indices = pairs_to_csr(pa, pb, res.unique)
-    res.degree = np.diff(indptr)
+    with search_span("csr"):
+        indptr, indices = pairs_to_csr(pa, pb, res.unique)
+        res.degree = np.diff(indptr)
     log.end(t)
 
     # --- clustering (humid.cc:167-193, cluster.cc) ---
@@ -711,27 +774,28 @@ def run(
     res.sizes = cl.size
     log.end(t)
 
-    os.makedirs(dir_name, exist_ok=True)
+    with log.span("outputs"):
+        os.makedirs(dir_name, exist_ok=True)
 
-    # Representative read per cluster: the first read (file order) whose
-    # word is the cluster's maxLeaf (humid.cc:223-232).
-    if cl.num_clusters:
-        rep_reads = np.sort(first_occ[cl.max_leaf])
-    else:
-        rep_reads = np.zeros(0, np.int64)
-    res.rep_reads = rep_reads
+        # Representative read per cluster: the first read (file order)
+        # whose word is the cluster's maxLeaf (humid.cc:223-232).
+        if cl.num_clusters:
+            rep_reads = np.sort(first_occ[cl.max_leaf])
+        else:
+            rep_reads = np.zeros(0, np.int64)
+        res.rep_reads = rep_reads
 
-    # Per-read cluster id (0 for filtered reads; humid.cc:271-278),
-    # only materialized for annotated output.  Filtered reads carry
-    # inv_by_read == -1, which indexes the appended 0 sentinel.
-    cluster_of_read = None
-    if write_annotated:
-        labels_ext = np.append(cl.labels, np.int64(0))
-        cluster_of_read = labels_ext[inv_by_read]
-    res.cluster_of_read = cluster_of_read
+        # Per-read cluster id (0 for filtered reads; humid.cc:271-278),
+        # only materialized for annotated output.  Filtered reads carry
+        # inv_by_read == -1, which indexes the appended 0 sentinel.
+        cluster_of_read = None
+        if write_annotated:
+            labels_ext = np.append(cl.labels, np.int64(0))
+            cluster_of_read = labels_ext[inv_by_read]
+        res.cluster_of_read = cluster_of_read
 
-    # --- pass 2: outputs ---
-    span_tables = _span_tables_from_accs(span_accs, res.total)
+        # --- pass 2: outputs ---
+        span_tables = _span_tables_from_accs(span_accs, res.total)
     if write_dedup:
         t = log.start("Writing filtered results")
         if span_tables is not None:
@@ -755,7 +819,6 @@ def run(
 
     if run_stats:
         t = log.start("Calculating count and neighbour stats")
-        log.end(t)
         write_statistics(
             counts=res.counts,
             degrees=res.degree,
@@ -766,9 +829,7 @@ def run(
             num_clusters=res.clusters,
             dir_name=dir_name,
         )
-
-    res.extra["timings"] = dict(log.timings)
-    log.close()
+        log.end(t)
     return res
 
 
