@@ -255,8 +255,8 @@ def pack_host_range(files, lo: int, hi: int, *, word_length: int = 24,
                 for b, acc in zip(sub, span_accs):
                     _span_stitch(_span_batch_part(
                         b, acc["hdr_parts"] is not None), acc)
-            packed, filtered = _batch_words(sub, nt_to_take,
-                                            header_umi_size)
+            packed, filtered, _ = _batch_words(sub, nt_to_take,
+                                               header_umi_size)
             packed_parts.append(packed)
             filt_parts.append(filtered)
         if base >= hi - shift:

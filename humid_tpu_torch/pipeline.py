@@ -84,6 +84,10 @@ try:
 except ImportError:  # pragma: no cover - extension not built
     _encode_pack = _gather_prefix = None
 try:
+    from .io._umi import gather_umi as _gather_umi
+except ImportError:  # pragma: no cover - extension not built
+    _gather_umi = None
+try:
     from ._hostops import merge_unique_runs as _merge_unique_runs
 except ImportError:  # pragma: no cover - extension not built
     _merge_unique_runs = None
@@ -94,8 +98,9 @@ OVERLAP_ENV_VAR = "HUMID_TPU_TORCH_OVERLAP_UNIQUE"
 
 
 def _batch_words(batches, nt_to_take, header_umi_size):
-    """One batch tuple -> (packed [n, W], filtered [n]), via the fused
-    native path (gather + encode + pack in C) when available."""
+    """One batch tuple -> (packed [n, W], filtered [n], the rows whose UMI
+    the native parse produced), via the fused native path (UMI parse,
+    gather + encode + pack in C) when available."""
     n = batches[0].n
     wl = header_umi_size + sum(nt_to_take)
     if _encode_pack is not None:
@@ -105,14 +110,20 @@ def _batch_words(batches, nt_to_take, header_umi_size):
                 and b0.prefix.shape[1] == nt_to_take[0]):
             # Single-file, no-UMI fast path: the fused framing-time
             # prefix IS the word chars matrix — encode it directly.
-            return _encode_pack(b0.prefix)
+            return (*_encode_pack(b0.prefix), 0)
         chars = np.empty((n, wl), np.uint8)
-        col = 0
+        col = umi_native = 0
         if header_umi_size > 0:
-            chars[:, :header_umi_size] = W.extract_umi_matrix(
-                b0.name_matrix(), header_umi_size,
-                lens=b0.ends[:, 0] - b0.starts[:, 0],
-            )
+            if _gather_umi is not None:
+                # Straight from the header spans, without the GIL.
+                _gather_umi(b0.buf, b0.starts[:, 0], b0.ends[:, 0], chars,
+                            0, header_umi_size)
+                umi_native = n
+            else:
+                chars[:, :header_umi_size] = W.extract_umi_matrix(
+                    b0.name_matrix(), header_umi_size,
+                    lens=b0.ends[:, 0] - b0.starts[:, 0],
+                )
             col = header_umi_size
         for b, k in zip(batches, nt_to_take):
             if k:
@@ -123,7 +134,7 @@ def _batch_words(batches, nt_to_take, header_umi_size):
                     _gather_prefix(b.buf, b.starts[:, 1], b.ends[:, 1],
                                    chars, col, k)
                 col += k
-        return _encode_pack(chars)
+        return (*_encode_pack(chars), umi_native)
     umi_chars = None
     if header_umi_size > 0:
         umi_chars = W.extract_umi_matrix(
@@ -132,7 +143,7 @@ def _batch_words(batches, nt_to_take, header_umi_size):
         )
     seq_chars = [b.seq_prefix(k) for b, k in zip(batches, nt_to_take)]
     codes, filtered = W.build_words(umi_chars, seq_chars)
-    return W.pack_words(codes), filtered
+    return W.pack_words(codes), filtered, 0
 
 
 def reads_estimate(files) -> int:
@@ -284,7 +295,7 @@ def overlap_unique(w: int) -> bool:
 def _pass1_overlapped(files, nt_to_take, header_umi_size, batch_records,
                       cache: list | None, want_inverse: bool,
                       run_rows: int = 8 << 20, span_accs: list | None = None,
-                      span=None):
+                      span=None, info: dict | None = None):
     """Pass 1 with unique counting folded in (words of at most two lanes;
     the reference's ``_pass1_overlapped``).  The packing jobs also emit
     (64-bit key, global read index) pairs of the usable reads; runs of
@@ -295,17 +306,18 @@ def _pass1_overlapped(files, nt_to_take, header_umi_size, batch_records,
     Returns (total, usable, uniq [U, w] uint32, counts, first_occ (global
     read indices), inverse by read [total] (-1 for filtered reads) or
     None).  ``span`` (a :meth:`.PhaseLog.spans_under` callable) times the
-    main thread's waits, as in :func:`_pass1`."""
+    main thread's waits, and ``info`` counts the native UMI rows, as in
+    :func:`_pass1`."""
     span = span or no_span
     w = W.num_lanes(header_umi_size + sum(nt_to_take))
     acc_k: list[np.ndarray] = []
     acc_i: list[np.ndarray] = []
     sort_futs: list = []
-    state = {"total": 0, "acc_n": 0}
+    state = {"total": 0, "acc_n": 0, "umi_native": 0}
 
     def _pack(batches, base):
-        packed, filtered = _batch_words(batches, nt_to_take,
-                                        header_umi_size)
+        packed, filtered, umi_native = _batch_words(batches, nt_to_take,
+                                                    header_umi_size)
         if filtered.any():
             keep = ~filtered
             keys = _combined_u64(packed[keep])
@@ -318,7 +330,7 @@ def _pass1_overlapped(files, nt_to_take, header_umi_size, batch_records,
             spans = [_span_batch_part(b, a["hdr_parts"] is not None)
                      if a["ok"] else None
                      for b, a in zip(batches, span_accs)]
-        return keys, gidx, spans
+        return keys, gidx, spans, umi_native
 
     def _sort_run(parts_k, parts_i):
         k, i = np.concatenate(parts_k), np.concatenate(parts_i)
@@ -331,7 +343,8 @@ def _pass1_overlapped(files, nt_to_take, header_umi_size, batch_records,
         def _drain():
             # In submission order, so span stitching sees stream order.
             with span("wait pack"):
-                keys, gidx, spans = inflight.popleft().result()
+                keys, gidx, spans, umi_native = inflight.popleft().result()
+            state["umi_native"] += umi_native
             if spans is not None:
                 for part, acc in zip(spans, span_accs):
                     _span_stitch(part, acc)
@@ -359,6 +372,8 @@ def _pass1_overlapped(files, nt_to_take, header_umi_size, batch_records,
             sort_futs.append(ex.submit(_sort_run, acc_k, acc_i))
         runs = [f.result() for f in sort_futs]
 
+    if info is not None:
+        info["umi_native_rows"] = state["umi_native"]
     total = state["total"]
     n_us = sum(len(r[0]) for r in runs)
     if not n_us:
@@ -398,7 +413,8 @@ def _waited(batches, span):
 
 def _pass1(files, nt_to_take, header_umi_size, batch_records,
            cache: list | None = None, pack_workers: int = 3,
-           span_accs: list | None = None, feeder=None, span=None):
+           span_accs: list | None = None, feeder=None, span=None,
+           info: dict | None = None):
     """Stream all files in lockstep; return (packed [N,W], filtered [N]).
     When ``cache`` is a list, parsed batch tuples are appended to it for
     reuse by the output pass.  When ``span_accs`` is given (one
@@ -416,14 +432,16 @@ def _pass1(files, nt_to_take, header_umi_size, batch_records,
     ``span`` (a :meth:`.PhaseLog.spans_under` callable; None times
     nothing) names the main thread's waits: "wait reader" (the reader's
     queue), "wait pack" (a packing job) and "concat" (the final
-    concatenations)."""
+    concatenations).  ``info`` (a dict, or None) receives
+    "umi_native_rows": the rows whose UMI the native parse produced."""
     span = span or no_span
     packed_parts: list[np.ndarray] = []
     filt_parts: list[np.ndarray] = []
+    umi_native_rows = 0
 
     def _work(batches):
-        packed, filtered = _batch_words(batches, nt_to_take,
-                                        header_umi_size)
+        packed, filtered, umi_native = _batch_words(batches, nt_to_take,
+                                                    header_umi_size)
         spans = None
         if span_accs is not None:
             # acc["ok"] read from the pool is GIL-safe; once a file's
@@ -431,13 +449,15 @@ def _pass1(files, nt_to_take, header_umi_size, batch_records,
             spans = [_span_batch_part(b, a["hdr_parts"] is not None)
                      if a["ok"] else None
                      for b, a in zip(batches, span_accs)]
-        return packed, filtered, spans
+        return packed, filtered, spans, umi_native
 
     def _drain(fut):
         # FIFO drain == submission order, so span stitching sees batches
         # in stream order.
+        nonlocal umi_native_rows
         with span("wait pack"):
-            packed, filtered, spans = fut.result()
+            packed, filtered, spans, umi_native = fut.result()
+        umi_native_rows += umi_native
         if feeder is not None:
             # The feeder holds usable rows only (usable-index space).
             feeder.push(packed[~filtered] if filtered.any() else packed)
@@ -459,6 +479,8 @@ def _pass1(files, nt_to_take, header_umi_size, batch_records,
                 _drain(inflight.popleft())
         while inflight:
             _drain(inflight.popleft())
+    if info is not None:
+        info["umi_native_rows"] = umi_native_rows
     if feeder is not None:
         # The last flush can also find the budget short: raise here, inside
         # the caller's fallback.
@@ -658,7 +680,7 @@ def _run(log: PhaseLog, dev, files, *, word_length, distance, dir_name,
         try:
             _, filtered = _pass1(files, nt_to_take, header_umi_size,
                                  batch_records, cache, span_accs=span_accs,
-                                 feeder=feeder, span=pass1_span)
+                                 feeder=feeder, span=pass1_span, info=engine)
         except FusedCapacityExceeded:
             # The row estimate undershot: read again through the host
             # path with fresh caches (these saw only a prefix).
@@ -694,14 +716,14 @@ def _run(log: PhaseLog, dev, files, *, word_length, distance, dir_name,
              inv_by_read) = _pass1_overlapped(
                 files, nt_to_take, header_umi_size, batch_records, cache,
                 want_inverse=write_annotated, span_accs=span_accs,
-                span=pass1_span)
+                span=pass1_span, info=engine)
         log.end(t)
         engine["unique"] = "overlapped"
         res.unique = len(uniq)
     else:
         packed, filtered = _pass1(files, nt_to_take, header_umi_size,
                                   batch_records, cache, span_accs=span_accs,
-                                  span=pass1_span)
+                                  span=pass1_span, info=engine)
         res.total = int(len(packed))
         res.usable = int((~filtered).sum())
         log.end(t)

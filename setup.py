@@ -8,8 +8,15 @@
 * humid_tpu._hostops — host sort/unique/run helpers (csrc/hostops.cpp).
 
 The PyTorch port (humid_tpu_torch) builds the same three sources under
-its own package path.  Its CUDA kernels are not built here: they are
-compiled with nvcc at first use (humid_tpu_torch/_build.py).
+its own package path, and one more of its own:
+
+* humid_tpu_torch.io._cumi — pass 1's UMI parse straight from the header
+  spans (csrc/umi_parse.cpp).  A source of its own, not a function of
+  csrc/fastqio.cpp, because that file also builds the JAX package's
+  extension and the parse exists for the port alone.
+
+Its CUDA kernels are not built here: they are compiled with nvcc at
+first use (humid_tpu_torch/_build.py).
 
 All are optional: the pure-Python/numpy fallbacks produce identical
 results.
@@ -68,5 +75,11 @@ setup(
                 extra_link_args=["-fopenmp"],
             ),
         )
+    ] + [
+        Extension(
+            "humid_tpu_torch.io._cumi",
+            sources=["csrc/umi_parse.cpp"],
+            extra_compile_args=["-O3", "-std=c++17"],
+        ),
     ],
 )

@@ -1,6 +1,6 @@
-"""The port's three host C extensions (``_hostops``, ``_cfastqio``,
-``_ccluster``, built by ``python setup.py build_ext``) against the
-port's own numpy and Python fallbacks, on seeded random inputs.
+"""The port's host C extensions (``_hostops``, ``_cfastqio``,
+``_ccluster``, ``_cumi``, built by ``python setup.py build_ext``) against
+the port's own numpy and Python fallbacks, on seeded random inputs.
 
 Every function of the extensions that the port calls is reached through
 the port's code twice: once as it stands, once with every extension hook
@@ -48,7 +48,7 @@ def _fallbacks(monkeypatch) -> None:
                       "_count_newlines_native", "_scan_frames_prefix_native",
                       "_gather_prefix_native")),
             (writer, ("_concat_native",)),
-            (pipeline, ("_encode_pack", "_gather_prefix")),
+            (pipeline, ("_encode_pack", "_gather_prefix", "_gather_umi")),
             (exact, ("_native",))):
         for name in names:
             monkeypatch.setattr(mod, name, None)
@@ -207,7 +207,7 @@ def test_components_and_masked_walk(monkeypatch, maximum):
 def test_run_end_to_end(monkeypatch, tmp_path, gz, maximum, edit):
     """encode_pack and every hook above through ``run()``: the same
     output bytes with the extensions and without."""
-    for name in ("_hostops", "io._cfastqio", "cluster._ccluster"):
+    for name in ("_hostops", "io._cfastqio", "cluster._ccluster", "io._cumi"):
         _built(name)
     paths, _ = gen_dataset(np.random.default_rng(5 + gz), str(tmp_path),
                            n_reads=500, n_files=2, umi_style="underscore",
@@ -233,6 +233,143 @@ def test_run_end_to_end(monkeypatch, tmp_path, gz, maximum, edit):
 
             got, want = gzip.decompress(got), gzip.decompress(want)
         assert got == want, f
+
+
+# ------------------------------------------------------- the UMI parse
+
+def _random_headers(rng, n, length, alphabet):
+    return [bytes(rng.choice(alphabet, int(rng.integers(0, length + 1))))
+            for _ in range(n)]
+
+
+def _umi_headers(style, rng):
+    """Header lines (bytes, without the newline) of one kind."""
+    umis = [_random_headers(rng, 1, 20, list(b"ACGT"))[0] for _ in range(40)]
+    if style == "underscore":
+        return [b"@r%d_" % i + u for i, u in enumerate(umis)] + [
+            b"@M1:2:3_ACGTACGT", b"_ACGT", b"@a_b_c_GATTACA"]
+    if style == "colon":
+        return [b"@M01:%d:" % i + u for i, u in enumerate(umis)] + [
+            b"@M1_2_3:ACGTACGT", b":ACGT", b"@a:b:c:GATTACA"]
+    if style == "mixed":
+        return [b"@a_b:ACGT", b"@a:b_ACGT", b"@a_ACGT:GG", b"@x:AC_GT",
+                b"@x_AC:GT", b"@x_ACGT_:GGC", b"@x:ACGT:_GGC", b"@x_:ACG",
+                b"@x:_ACG", b"@_:", b"@:_", b"@a_AC:x_GT:T"]
+    if style == "spaces":
+        return [b"@r_ACGT 1:N:0:ACGT", b"@r:ACGT 1:N:0:GG", b" @r_ACGT",
+                b"@r_ACGT ", b"@r_ACGT  x_GGG", b"@r_AC GT", b"@r_ 1_ACGT",
+                b"@r:AC GT:TT", b" ", b"  _ACGT", b"@r_ACG\tT x"]
+    if style == "cr":
+        return [b"@r_ACGT\r", b"@r\r_ACGT", b"@r:ACGT\r\r", b"@r_AC\rGT",
+                b"\r", b"@r_ACGT\r 1:N", b"@r_\rACGT", b"@r:GG\r_ACGT"]
+    if style == "invalid":
+        return [b"@r_acgt", b"@r_ACNT", b"@r_", b"@r:", b"@r_ACGT_",
+                b"@r:ACGT:", b"@r_N", b"@r:NNNN", b"@r_ACGu", b"@r_\x00ACG",
+                b"@r_AC\x00", b"@r_ACGT\xc1", b"@r_\xff", b"@r:acgt_"]
+    if style == "no_separator":
+        return [b"@ACGT", b"ACGT", b"", b"@read1", b"A", b"@r-ACGT",
+                b"@r.ACGT", b"@r/ACGT"]
+    if style == "lengths":
+        # UMIs of every length from 1 to 20 bases, in both styles.
+        return [sep + (b"TGCAC" * 4)[:k] for sep in (b"@r_", b"@r:")
+                for k in range(1, 21)]
+    if style == "long":
+        # Past 256 bytes, with the UMI, a space or both out there.
+        pad = bytes(rng.choice(list(b"abcdefghijxyz0123456789"), 300))
+        return [b"@" + pad + b"_ACGTACGTAC", b"@" + pad + b":GGTTAACC",
+                b"@r_ACGTAC " + pad, b"@" + pad + b"_TTGG " + pad,
+                b"@" + pad + b"\x00\t_CAGT", b"@" + pad * 3 + b"_ACGT",
+                b"@" + pad + b"_" + b"ACGT" * 80]
+    assert style == "random"
+    return _random_headers(rng, 400, 300, list(b"ACGTNacgt_: \r\t\x00"))
+
+
+@pytest.mark.parametrize("umi_size", [1, 8, 12])
+@pytest.mark.parametrize("style", [
+    "underscore", "colon", "mixed", "spaces", "cr", "invalid",
+    "no_separator", "lengths", "long", "random"])
+def test_gather_umi(style, umi_size):
+    """gather_umi against ``extract_umi`` + ``make_string_size`` row by
+    row, and against ``extract_umi_matrix`` (the fallback) on the same
+    spans; the columns beside the UMI are left as they were."""
+    _built("io._cumi")
+    from humid_tpu_torch.io._umi import gather_umi
+
+    rng = np.random.default_rng(umi_size * 100 + len(style))
+    headers = _umi_headers(style, rng)
+    # Spans into one buffer, with other bytes between them.
+    parts, starts, ends, pos = [], [], [], 0
+    for h in headers:
+        gap = bytes(rng.choice(list(b"\nACGT_: "), int(rng.integers(1, 4))))
+        parts += [gap, h]
+        starts.append(pos + len(gap))
+        ends.append(pos + len(gap) + len(h))
+        pos += len(gap) + len(h)
+    buf = np.frombuffer(b"".join(parts) + b"\n", np.uint8)
+    n = len(headers)
+    st = np.zeros((n, 4), np.int64)
+    en = np.zeros((n, 4), np.int64)
+    st[:, 0], en[:, 0] = starts, ends
+
+    out = np.full((n, 3 + umi_size + 5), 7, np.uint8)
+    gather_umi(buf, st[:, 0], en[:, 0], out, 3, umi_size)
+    got = out[:, 3:3 + umi_size]
+    assert (out[:, :3] == 7).all() and (out[:, 3 + umi_size:] == 7).all()
+
+    want = [W.make_string_size(W.extract_umi(h.decode("latin1")), umi_size)
+            for h in headers]
+    assert [bytes(r).decode("latin1") for r in got] == want
+    batch = reader.FastqBatch(buf, st, en)
+    np.testing.assert_array_equal(
+        got, W.extract_umi_matrix(batch.name_matrix(), umi_size,
+                                  lens=en[:, 0] - st[:, 0]))
+
+
+def test_gather_umi_rejects_bad_spans():
+    """A span outside the buffer, or columns outside ``out``, raise."""
+    _built("io._cumi")
+    from humid_tpu_torch.io._umi import gather_umi
+
+    buf = np.frombuffer(b"@r_ACGT\n", np.uint8)
+    out = np.zeros((1, 8), np.uint8)
+    for s, e in ((0, 9), (-1, 4), (5, 4)):
+        with pytest.raises(ValueError):
+            gather_umi(buf, np.array([s]), np.array([e]), out, 0, 8)
+    with pytest.raises(ValueError):
+        gather_umi(buf, np.array([0]), np.array([7]), out, 4, 8)
+    gather_umi(buf, np.array([0]), np.array([7]), out, 0, 8)
+    assert bytes(out[0]) == b"ACGTNNNN"
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("case", ["umi", "no_umi", "fallback"])
+def test_umi_native_rows(monkeypatch, tmp_path, case, overlap):
+    """``extra["engine"]["umi_native_rows"]``: every read of a paired UMI
+    run with the extension, 0 without a UMI and 0 on the fallback, by
+    pass 1 and by the overlapped route."""
+    if case != "fallback":
+        for name in ("_hostops", "io._cfastqio", "io._cumi"):
+            _built(name)
+    paths, _ = gen_dataset(np.random.default_rng(60 + overlap),
+                           str(tmp_path), n_reads=700, n_files=2,
+                           umi_style="none" if case == "no_umi"
+                           else "underscore", ragged=True)
+    with monkeypatch.context() as m:
+        if overlap:
+            m.setenv(pipeline.OVERLAP_ENV_VAR, "1")
+        else:
+            m.delenv(pipeline.OVERLAP_ENV_VAR, raising=False)
+        if case == "fallback":
+            _fallbacks(m)
+        res = pipeline.run(paths, word_length=24, distance=1,
+                           dir_name=str(tmp_path / "out"),
+                           log_name=os.devnull, run_stats=True,
+                           batch_records=128, device="cpu")
+    engine = res.extra["engine"]
+    assert res.total == 700
+    assert engine["umi_native_rows"] == (res.total if case == "umi" else 0)
+    routed = overlap and case != "fallback"
+    assert (engine["unique"] == "overlapped") == routed
 
 
 # --------------------------------------------------- the two opt-in routes

@@ -234,12 +234,12 @@ def midscale_edit(humid_ref, tmp_path_factory):
 
 @pytest.mark.parametrize("opts,engine", [
     ({}, {"unique": "host", "metric": "edit", "strategy": "runs",
-          "join_cap_fallbacks": 0}),
+          "join_cap_fallbacks": 0, "umi_native_rows": 0}),
     ({"strategy": "sharded", "mesh": 3},
      {"unique": "host", "metric": "edit", "strategy": "sharded", "shards": 3,
-      "ring_fallbacks": 0, "join_cap_fallbacks": 0}),
+      "ring_fallbacks": 0, "join_cap_fallbacks": 0, "umi_native_rows": 0}),
     ({"strategy": "dense"}, {"unique": "host", "metric": "edit",
-                             "strategy": "dense"}),
+                             "strategy": "dense", "umi_native_rows": 0}),
 ], ids=["auto", "sharded", "dense"])
 def test_midscale_edit_matches_humid_ref(opts, engine, midscale_edit,
                                          tmp_path):
@@ -320,6 +320,7 @@ def test_mesh_strategies_write_the_same_bytes(tmp_path):
     run() through its Pallas ring."""
     import humid_tpu
     import humid_tpu_torch
+    from humid_tpu_torch import pipeline
     from humid_tpu_torch.parallel import data_mesh
 
     files, extra = _dataset(HAMMING_CASES[1], tmp_path)  # paired, with UMI
@@ -334,9 +335,13 @@ def test_mesh_strategies_write_the_same_bytes(tmp_path):
         res = humid_tpu_torch.run(
             files, dir_name=str(tmp_path / strategy), device="cpu",
             neighbor_opts={"strategy": strategy, "mesh": mesh}, **kw)
+        # Every read's UMI comes from the native parse where it is built.
+        native = (pipeline._gather_umi is not None
+                  and pipeline._encode_pack is not None)
         assert res.extra["engine"] == {
             "unique": "host", "metric": "hamming", "strategy": strategy,
-            "shards": 3, "ring_fallbacks": 0}
+            "shards": 3, "ring_fallbacks": 0,
+            "umi_native_rows": res.total if native else 0}
         _assert_same_dirs(tmp_path / "auto", tmp_path / strategy)
         _assert_same_dirs(tmp_path / "jax", tmp_path / strategy)
 
@@ -355,5 +360,5 @@ def test_cli_honours_strategy_and_shards_variables(humid_ref, cpu_device,
     _run_port(tmp_path / "port", ["-s", "-a", *extra], files)
     assert [r.extra["engine"] for r in results] == [
         {"unique": "host", "metric": "hamming", "strategy": "ring",
-         "shards": 4, "ring_fallbacks": 0}]
+         "shards": 4, "ring_fallbacks": 0, "umi_native_rows": 0}]
     _assert_same_dirs(tmp_path / "ref", tmp_path / "port")
