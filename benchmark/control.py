@@ -6,9 +6,10 @@ judge not correct.
 
 For each seed it makes (or finds) the cell's FastQ files, runs the
 reference, and runs the control: the same reference whose neighbour
-search visits only the first of its ``m + 1`` pigeonhole segments, so the
-pairs whose mismatches all fall there are never found (the guarantee that
-every pair within ``m`` is a neighbour is broken).  The control's
+search visits only the first of its ``m + 1`` pigeonhole segments (under
+``edit``: that segment at shift 0 only), so the pairs whose mismatches or
+indels all fall there are never found (the guarantee that every pair
+within ``m`` is a neighbour is broken).  The control's
 statistics files and arrays go through the harness's own comparison, and
 one JSON line a seed gives each number compared beside its limit.  It
 needs no card and is not part of a benchmark run.
@@ -30,9 +31,11 @@ from reference import humid_np  # noqa: E402
 
 def readings(files, flags, search_segments=1) -> dict:
     """The comparison's numbers for the control on ``files``."""
-    ref = humid_np.humid(files, flags["word_length"], flags["distance"])
+    edit = flags.get("edit", False)
+    ref = humid_np.humid(files, flags["word_length"], flags["distance"],
+                         edit=edit)
     ctl = humid_np.humid(files, flags["word_length"], flags["distance"],
-                         search_segments=search_segments)
+                         search_segments=search_segments, edit=edit)
     with tempfile.TemporaryDirectory(prefix="portbench-control-") as d:
         for name, data in ctl.files.items():
             with open(os.path.join(d, name), "wb") as f:
@@ -48,6 +51,7 @@ def main(argv) -> int:
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     args = p.parse_args(argv)
     _, _, config, traffic = harness.cell(args.workload)
+    harness.refuse_unjudged(config["run"])
     for seed in args.seeds:
         t = time.perf_counter()
         meta = harness.Inputs(config, traffic, seed, args.workload).wait()

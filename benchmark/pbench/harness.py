@@ -14,7 +14,9 @@ refreshed outside the measured process); run one untimed
 ``humid_tpu_torch.run`` on the files.  Window: ``run`` back to back on the
 files with the configuration's flags for S seconds.  Then the program's
 outputs are judged against the plain NumPy HUMID in
-``benchmark/reference`` and one JSON line is printed (``--trace 0``: the
+``benchmark/reference`` (which follows the configuration's ``edit``;
+a configuration with a flag the reference does not model is refused
+before anything is made) and one JSON line is printed (``--trace 0``: the
 end-to-end metrics; ``--trace 1``: the per-layer metrics, read by the
 readers in ``benchmark/metrics`` from the phase timers and a profiled
 slice of iterations taken after the window).
@@ -62,6 +64,10 @@ KEEP_SAMPLES = 6
 #: Iterations in the profiled slice of a ``--trace 1`` run.
 PROFILED = 3
 STAT_FILES = ("counts.dat", "neigh.dat", "clusters.dat", "stats.dat")
+#: The configuration's ``run`` flags that the reference models (and passes
+#: on), or that change no number compared.
+JUDGED_FLAGS = {"word_length", "distance", "edit", "run_stats",
+                "write_dedup", "write_annotated"}
 
 
 def log(*parts) -> None:
@@ -137,6 +143,19 @@ def cell(workload: str) -> tuple[dict, dict, dict, dict]:
     traffic = load_json(os.path.join(HERE, "traffic",
                                      f"{entry['traffic']}.json"))
     return bench, entry, config, traffic
+
+
+def refuse_unjudged(flags: dict) -> None:
+    """Stop where the configuration's ``run`` sets a flag that changes the
+    compared outputs but that the reference does not model: a run under
+    it could only be misjudged."""
+    for key, value in flags.items():
+        if key == "maximum" and not value:
+            continue
+        if key not in JUDGED_FLAGS:
+            raise SystemExit(
+                f"the configuration's run sets {key}={value!r}, which the "
+                "reference (benchmark/reference/humid_np.py) does not model")
 
 
 def applies(metric: dict, workload: str) -> bool:
@@ -391,28 +410,27 @@ def compare(ref, stat_dirs: list, samples: list) -> tuple[dict, set]:
 
 class Context:
     """What a per-layer metric's reader may read: each window iteration's
-    phase timers (seconds, by the program's phase names), the harness's
-    own spans (``spans``: name -> seconds per iteration), the profiled
+    phase timers (seconds, by the program's phase names), the profiled
     slice's trace summary (``trace``; empty when nothing was traced), the
-    reference's unique words and pairs, and the word's lanes."""
+    reference's unique words and pairs, the word's lanes, the
+    configuration's ``run`` flags (``flags``) and the reference's whole
+    ``Result`` (``ref``; None where there is none)."""
 
-    def __init__(self, timings, spans, trace, unique, pairs, lanes):
+    def __init__(self, timings, trace, unique, pairs, lanes, flags=None,
+                 ref=None):
         self.timings = timings
-        self.spans = spans
         self.trace = trace
         self.unique = unique
         self.pairs = pairs
         self.lanes = lanes
+        self.flags = flags or {}
+        self.ref = ref
 
     def phase_ms(self, names) -> float | None:
         """Mean over the window's iterations of the named phases' sum, in
         ms; None where no iteration has any of them."""
         vals = [sum(t[n] for n in names if n in t) for t in self.timings
                 if any(n in t for n in names)]
-        return 1e3 * float(np.mean(vals)) if vals else None
-
-    def span_ms(self, name) -> float | None:
-        vals = self.spans.get(name) or []
         return 1e3 * float(np.mean(vals)) if vals else None
 
 
@@ -447,6 +465,7 @@ def main(argv, *, on_card: bool = True, build: bool = True,
     t_start = time.perf_counter()
     args = parse(argv)
     bench, entry, config, traffic = cell(args.workload)
+    refuse_unjudged(config["run"])
     if traffic_override:
         traffic = {**traffic, **traffic_override}
     io0 = proc_io()
@@ -549,7 +568,8 @@ def main(argv, *, on_card: bool = True, build: bool = True,
             t = time.perf_counter()
             from reference import humid_np
             ref = humid_np.humid(files, flags["word_length"],
-                                 flags["distance"])
+                                 flags["distance"],
+                                 edit=flags.get("edit", False))
             ref_s = time.perf_counter() - t
             checks, wrong = compare(ref, result["stat_dirs"],
                                     result["samples"])
@@ -572,7 +592,8 @@ def main(argv, *, on_card: bool = True, build: bool = True,
     log("window quarters (iterations, mean s, and each phase's mean ms):",
         json.dumps(quarters(result)))
     log(f"reference: {ref_s:.2f} s, {len(ref.keys)} unique words, "
-        f"{int(ref.degree.sum()) // 2} pairs, {len(ref.sizes)} clusters")
+        f"{int(ref.degree.sum()) // 2} pairs, {len(ref.sizes)} clusters, "
+        f"{ref.candidates} candidates")
     io1 = proc_io()
     log("bytes written by the run and its children (write_bytes, wchar):",
         json.dumps({k: io1.get(k, 0) - io0.get(k, 0)
@@ -591,9 +612,10 @@ def main(argv, *, on_card: bool = True, build: bool = True,
                 metrics[m["name"]] = {"value": values[m["name"]],
                                       "unit": m["unit"]}
     else:
-        ctx = Context(result["timings"], result["spans"], trace,
-                      unique=len(ref.keys), pairs=int(ref.degree.sum()) // 2,
-                      lanes=-(-flags["word_length"] // 16))
+        ctx = Context(result["timings"], trace, unique=len(ref.keys),
+                      pairs=int(ref.degree.sum()) // 2,
+                      lanes=-(-flags["word_length"] // 16), flags=flags,
+                      ref=ref)
         for m in bench["per_layer"]:
             if applies(m, args.workload):
                 v = read_metric(m["name"], ctx)
@@ -653,60 +675,44 @@ def window(program, files, flags, device, work, args, torch) -> dict:
     """``run`` back to back for ``args.seconds``; each iteration writes its
     statistics into a directory of its own."""
     rng = np.random.default_rng(args.seed)
-    spans: dict = {}
-    orig_stats = program.write_statistics
-    if args.trace:
-        # The program's own phase timer closes before its statistics are
-        # computed and written: time the writer from here.
-        def timed_stats(**kw):
-            t = time.perf_counter()
-            try:
-                return orig_stats(**kw)
-            finally:
-                spans.setdefault("write_statistics", []).append(
-                    time.perf_counter() - t)
-        program.write_statistics = timed_stats
     out = {"stat_dirs": [], "samples": [], "raised": [], "reads": [],
-           "timings": [], "routes": [], "iter_s": [], "spans": spans,
+           "timings": [], "routes": [], "iter_s": [],
            "host": [host_sample()]}
-    try:
-        t0 = time.perf_counter()
-        k = 0
-        while True:
-            d = os.path.join(work, f"it{k}")
-            ti = time.perf_counter()
-            try:
-                res = program.run(files, log_name=os.devnull, dir_name=d,
-                                  device=device, **flags)
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-            except Exception as exc:  # an iteration that raises is counted
-                log(f"iteration {k} raised: {exc!r}")
-                out["raised"].append(k)
-                res = None
-            now = time.perf_counter()
-            out["iter_s"].append(now - ti)
-            out["host"].append(host_sample())
-            if res is not None:
-                out["reads"].append(int(res.total))
-                out["timings"].append(dict(res.extra.get("timings", {})))
-                out["routes"].append(res.extra.get("engine", {}))
-                out["stat_dirs"].append((k, d))
-                kept = (k, res.counts, res.degree, res.rep_reads)
-                if len(out["samples"]) < SAMPLED:
-                    out["samples"].append(kept)
-                else:
-                    j = int(rng.integers(0, k + 1))
-                    if j < SAMPLED:
-                        out["samples"][j] = kept
-                del res
-            k += 1
-            if now - t0 >= args.seconds:
-                break
-        out["window_s"] = now - t0
-        out["iterations"] = k
-    finally:
-        program.write_statistics = orig_stats
+    t0 = time.perf_counter()
+    k = 0
+    while True:
+        d = os.path.join(work, f"it{k}")
+        ti = time.perf_counter()
+        try:
+            res = program.run(files, log_name=os.devnull, dir_name=d,
+                              device=device, **flags)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        except Exception as exc:  # an iteration that raises is counted
+            log(f"iteration {k} raised: {exc!r}")
+            out["raised"].append(k)
+            res = None
+        now = time.perf_counter()
+        out["iter_s"].append(now - ti)
+        out["host"].append(host_sample())
+        if res is not None:
+            out["reads"].append(int(res.total))
+            out["timings"].append(dict(res.extra.get("timings", {})))
+            out["routes"].append(res.extra.get("engine", {}))
+            out["stat_dirs"].append((k, d))
+            kept = (k, res.counts, res.degree, res.rep_reads)
+            if len(out["samples"]) < SAMPLED:
+                out["samples"].append(kept)
+            else:
+                j = int(rng.integers(0, k + 1))
+                if j < SAMPLED:
+                    out["samples"][j] = kept
+            del res
+        k += 1
+        if now - t0 >= args.seconds:
+            break
+    out["window_s"] = now - t0
+    out["iterations"] = k
     return out
 
 

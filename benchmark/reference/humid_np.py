@@ -27,12 +27,17 @@ Hamming distance and directional clustering) from the FastQ files alone:
   value`` histograms in ascending key order of unique counts, neighbour
   counts and cluster sizes in reads) and ``stats.dat``.
 
+With ``edit=True`` (``humid -e``) the neighbours are every pair of
+uniques within Levenshtein distance ``m`` instead (:func:`edit_pairs`);
+the rest is the same.
+
 It imports NumPy and nothing of the program.  Words of up to 32 bases
 (one 64-bit key) are supported.
 
 ``search_segments`` is the control's lever: searching fewer of the
-``m + 1`` segments misses the pairs whose mismatches fall in the others,
-which breaks the guarantee that every pair within ``m`` is found.
+``m + 1`` segments (and, under ``edit``, each of them at shift 0 only)
+misses the pairs whose edits fall in the others, which breaks the
+guarantee that every pair within ``m`` is found.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ class Result:
     sizes: np.ndarray       # [K] cluster sizes in reads
     rep_reads: np.ndarray   # [K] representative reads, ascending
     files: dict             # statistics file name -> bytes
+    candidates: int = 0     # distinct candidate pairs verified (edit only)
 
 
 # ---------------------------------------------------------------------------
@@ -183,15 +189,25 @@ def hamming(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return ((z * _H01) >> np.uint64(56)).astype(np.int64)
 
 
+def segment_bounds(length: int, parts: int) -> list:
+    """The ``parts + 1`` bounds of ``parts`` segments of near-equal
+    length."""
+    return [length * p // parts for p in range(parts + 1)]
+
+
+def window_keys(keys: np.ndarray, length: int, start: int,
+                size: int) -> np.ndarray:
+    """The ``size`` bases of each word from base ``start`` on, packed."""
+    shift = np.uint64(2 * (length - start - size))
+    mask = np.uint64((1 << (2 * size)) - 1)
+    return (keys >> shift) & mask
+
+
 def segment_keys(keys: np.ndarray, length: int, parts: int) -> list:
     """The words cut into ``parts`` segments of near-equal length."""
-    bounds = [length * p // parts for p in range(parts + 1)]
-    out = []
-    for lo, hi in zip(bounds[:-1], bounds[1:]):
-        shift = np.uint64(2 * (length - hi))
-        mask = np.uint64((1 << (2 * (hi - lo))) - 1)
-        out.append((keys >> shift) & mask)
-    return out
+    bounds = segment_bounds(length, parts)
+    return [window_keys(keys, length, lo, hi - lo)
+            for lo, hi in zip(bounds[:-1], bounds[1:])]
 
 
 def neighbour_pairs(keys: np.ndarray, length: int, m: int,
@@ -227,6 +243,155 @@ def neighbour_pairs(keys: np.ndarray, length: int, m: int,
         z = np.zeros(0, np.int64)
         return z, z
     return np.concatenate(out_a), np.concatenate(out_b)
+
+
+# ---------------------------------------------------------------------------
+# Levenshtein neighbours (-e)
+# ---------------------------------------------------------------------------
+
+#: Candidate pairs handled at a time by :func:`edit_pairs`: its memory is
+#: some hundred bytes a candidate of one block, whatever the total.
+EDIT_BLOCK = 1 << 21
+
+
+def edit_probes(length: int, m: int,
+                search_segments: int | None = None) -> list:
+    """(start, size, shift) of each search of the partition lemma: segment
+    ``[start, start + size)`` of one word against the bases ``shift``
+    further on in another, for the ``m + 1`` segments of
+    :func:`segment_keys` and every shift in ``[-m, m]`` that keeps the
+    window inside the word.  A cut search (``search_segments``) takes the
+    first segments at shift 0 only."""
+    bounds = segment_bounds(length, m + 1)
+    shifts = range(-m, m + 1) if search_segments is None else (0,)
+    out = []
+    for lo, hi in list(zip(bounds[:-1], bounds[1:]))[:search_segments]:
+        out.extend((lo, hi - lo, d) for d in shifts
+                   if lo + d >= 0 and hi + d <= length)
+    return out
+
+
+def equal_key_pairs(a_keys: np.ndarray, b_keys: np.ndarray):
+    """Blocks (i, j) of every pair with ``a_keys[i] == b_keys[j]``, at
+    most ``EDIT_BLOCK`` pairs a block: a merge join of the two sorted
+    key lists, each run of equal keys expanded into its cross product."""
+    oa = np.argsort(a_keys, kind="stable")
+    ob = np.argsort(b_keys, kind="stable")
+    sa, sb = a_keys[oa], b_keys[ob]
+    start = np.flatnonzero(np.concatenate([[True], sa[1:] != sa[:-1]]))
+    na = np.diff(np.append(start, len(sa)))
+    lo = np.searchsorted(sb, sa[start], "left")
+    nb = np.searchsorted(sb, sa[start], "right") - lo
+    hit = nb > 0
+    start, na, lo, nb = start[hit], na[hit], lo[hit], nb[hit]
+    end = np.cumsum(na * nb)
+    begin = end - na * nb
+    total = int(end[-1]) if len(end) else 0
+    for t0 in range(0, total, EDIT_BLOCK):
+        t = np.arange(t0, min(t0 + EDIT_BLOCK, total), dtype=np.int64)
+        g = np.searchsorted(end, t, "right")
+        r = t - begin[g]
+        yield oa[start[g] + r // nb[g]], ob[lo[g] + r % nb[g]]
+
+
+def banded_levenshtein(a: np.ndarray, b: np.ndarray, m: int) -> np.ndarray:
+    """The edit distance of each word pair (columns of ``a`` and ``b``,
+    [L, n] base codes), clamped at ``m + 1``.
+
+    The DP of the textbook, row by row over ``a``'s bases, with three
+    departures that leave every distance up to ``m`` exact: only the
+    cells within ``m`` of the diagonal are computed (a path that leaves
+    that band makes more than ``m`` indels); every cell is clamped at
+    ``m + 1``, so a distance above ``m`` reads ``m + 1``; and a pair
+    whose row has no cell within ``m`` is dropped from the later rows, as
+    a row's least cell never falls.  The words have one length, as
+    HUMID's do."""
+    length, n = a.shape
+    inf = m + 1
+    band = 2 * m + 1
+    out = np.full(n, inf, np.uint8)
+    live = np.arange(n)
+    # prev[m + k] is D[i - 1][i - 1 + k]: row 0 is D[0][j] = j.
+    prev = np.full((band, n), inf, np.uint8)
+    for k in range(m + 1):
+        prev[m + k] = k
+    for i in range(1, length + 1):
+        if i % 4 == 0:
+            keep = prev.min(axis=0) <= m
+            if keep.sum() < 0.75 * len(live):
+                live, prev = live[keep], prev[:, keep]
+                a, b = a[:, keep], b[:, keep]
+        cur = np.full((band, len(live)), inf, np.uint8)
+        for c in range(band):
+            j = i + c - m
+            if j < 0 or j > length:
+                continue
+            if j == 0:
+                cur[c] = min(i, inf)
+                continue
+            # Substitution (or match), deletion, insertion.
+            v = prev[c] + (a[i - 1] != b[j - 1])
+            if c + 1 < band:
+                np.minimum(v, prev[c + 1] + 1, out=v)
+            if c > 0:
+                np.minimum(v, cur[c - 1] + 1, out=v)
+            np.minimum(v, inf, out=cur[c])
+        prev = cur
+    out[live] = prev[m]
+    return out
+
+
+def edit_pairs(keys: np.ndarray, length: int, m: int,
+               search_segments: int | None = None):
+    """(a, b, candidates): every pair a < b of ``keys`` whose full words
+    are within Levenshtein distance ``m`` (substitutions, insertions and
+    deletions; HUMID's ``-e``), each once, and the number of distinct
+    candidate pairs that were verified.
+
+    Candidates come from the partition lemma: of a word's ``m + 1``
+    segments, at most ``m`` are touched by ``m`` edits, so some segment
+    appears unchanged in the other word, shifted by the indels before it
+    (at most ``m`` bases).  :func:`edit_probes` lists the (segment, shift)
+    searches, each a join of equal keys (:func:`equal_key_pairs`); a pair
+    is a candidate of the first search, in that order and with its
+    smaller word first before its larger, that finds it, so the union is
+    taken without holding it.  Each candidate is then checked by
+    :func:`banded_levenshtein`."""
+    z = np.zeros(0, np.int64)
+    if m == 0 or len(keys) < 2:
+        return z, z, 0
+    codes = np.empty((length, len(keys)), np.uint8)
+    for j in range(length):
+        codes[j] = (keys >> np.uint64(2 * (length - 1 - j))) & np.uint64(3)
+    probes = edit_probes(length, m, search_segments)
+
+    def found(q, kx, ky):
+        """Does search ``q`` find the pair with the word ``kx`` first?"""
+        lo, size, d = probes[q]
+        return (window_keys(kx, length, lo, size)
+                == window_keys(ky, length, lo + d, size))
+
+    out_a, out_b, candidates = [], [], 0
+    for p, (lo, size, d) in enumerate(probes):
+        for i, j in equal_key_pairs(window_keys(keys, length, lo, size),
+                                    window_keys(keys, length, lo + d, size)):
+            x, y = np.minimum(i, j), np.maximum(i, j)
+            kx, ky = keys[x], keys[y]
+            # Found first here: not a word with itself, not by this search
+            # with the smaller word first where the larger came first, and
+            # by no earlier search either way round.
+            first = (i != j) & ~((i > j) & found(p, kx, ky))
+            for q in range(p):
+                first &= ~(found(q, kx, ky) | found(q, ky, kx))
+            x, y = x[first], y[first]
+            candidates += len(x)
+            ok = banded_levenshtein(np.take(codes, x, axis=1),
+                                    np.take(codes, y, axis=1), m) <= m
+            out_a.append(x[ok])
+            out_b.append(y[ok])
+    if not out_a:
+        return z, z, candidates
+    return np.concatenate(out_a), np.concatenate(out_b), candidates
 
 
 # ---------------------------------------------------------------------------
@@ -295,15 +460,20 @@ def histogram_bytes(values: np.ndarray) -> bytes:
 
 
 def humid(files: list[str], word_length: int = 24, distance: int = 1,
-          search_segments: int | None = None) -> Result:
-    """``humid -n word_length -m distance -s`` on ``files``."""
+          search_segments: int | None = None, edit: bool = False) -> Result:
+    """``humid -n word_length -m distance -s`` on ``files`` (with ``-e``
+    where ``edit``)."""
     keys, usable, length = words(files, word_length)
     total = len(keys)
     read_idx = np.flatnonzero(usable)
     uk, first, counts = np.unique(keys[read_idx], return_index=True,
                                   return_counts=True)
     first_read = read_idx[first]
-    a, b = neighbour_pairs(uk, length, distance, search_segments)
+    candidates = 0
+    if edit:
+        a, b, candidates = edit_pairs(uk, length, distance, search_segments)
+    else:
+        a, b = neighbour_pairs(uk, length, distance, search_segments)
     reps, sizes, degree = directional(counts.astype(np.int64), a, b)
     stats = (f"total: {total}\nusable: {len(read_idx)}\nunique: {len(uk)}\n"
              f"clusters: {len(reps)}\n").encode()
@@ -313,4 +483,5 @@ def humid(files: list[str], word_length: int = 24, distance: int = 1,
                  "stats.dat": stats}
     return Result(total=total, usable=len(read_idx), keys=uk, counts=counts,
                   first_read=first_read, degree=degree, sizes=sizes,
-                  rep_reads=np.sort(first_read[reps]), files=files_out)
+                  rep_reads=np.sort(first_read[reps]), files=files_out,
+                  candidates=candidates)

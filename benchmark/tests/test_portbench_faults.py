@@ -1,14 +1,19 @@
 """The harness's run with the look for a card skipped (the program on the
 CPU, small traffic): sound, it comes out correct; with the timed path
 broken underneath, not correct.  And the control (the reference with its
-neighbour search cut to one pigeonhole segment) is judged not correct."""
+neighbour search cut to one pigeonhole segment) is judged not correct.
+The same under a test-local ``edit`` configuration (Levenshtein
+neighbours, a sample with indels), and a configuration with a flag the
+reference does not model is refused before anything runs."""
 
 import json
+import os
 
 import numpy as np
 import pytest
 
 import control
+from conftest import indel_sample
 from pbench import harness
 
 SMALL = {"se100_default.wgs_qc": {"reads": 3000, "duplicate_share": 0.4,
@@ -89,7 +94,7 @@ def test_traced_run_reports_per_layer_metrics(bench_env, capsys):
     line = _run(capsys, "se100_default.wgs_qc", trace=1)
     assert line["correct"] is True
     assert {"pass1_ms", "neighbours_ms", "cluster_ms",
-            "stats_ms"} <= set(line["metrics"])
+            "stats_phase_ms"} <= set(line["metrics"])
     assert "k1_roofline" not in line["metrics"]  # no card, no K1
 
 
@@ -205,6 +210,156 @@ def test_control_is_not_correct(bench_env, workload):
     _, _, config, traffic = harness.cell(workload)
     traffic = {**traffic, **SMALL[workload]}
     meta = harness.Inputs(config, traffic, 2147483659, workload).wait()
+    checks = control.readings(meta["files"], config["run"])
+    assert checks["neighbour_degrees_differing"]["value"] > 0
+    assert checks["stats_files_differing"]["value"] > 0
+    sound = control.readings(meta["files"], config["run"],
+                             search_segments=None)
+    assert all(c["value"] == 0 for c in sound.values())
+
+
+# ---------------------------------------------------------------------------
+# A configuration that states edit (-e): HUMID's defaults at -m 2
+# ---------------------------------------------------------------------------
+
+EDIT = "se100_edit.indel_qc"
+EDIT_TRAFFIC = {"generator": "duplicate_share", "reads": 3000,
+                "duplicate_share": 0.4, "substitution_rate": 0.02,
+                "environment": {"HUMID_TPU_TORCH_CALIBRATION": "off"}}
+#: Reads added to the sample that copy a read with an indel in the word.
+EDIT_INDELS = 400
+
+
+def _edit_cell(monkeypatch, **run):
+    """Point the harness at a test-local configuration (``se100_default``
+    with ``run`` changed) and a sample with indel copies."""
+    bench, _, config, _ = harness.cell("se100_default.wgs_qc")
+    config = {**config, "name": "se100_edit",
+              "run": {**config["run"], "distance": 2, "edit": True, **run}}
+    entry = {"name": EDIT, "config": "se100_edit", "traffic": "indel_qc",
+             "chips": 1, "why": "test-local"}
+    bench = {**bench, "workloads": bench["workloads"] + [entry]}
+    made = []
+
+    class Inputs:
+        def __init__(self, config, traffic, seed, name):
+            d = os.path.join(harness.CACHE, "indel", str(seed))
+            os.makedirs(d, exist_ok=True)
+            self.meta = indel_sample(config, traffic, seed, d, EDIT_INDELS,
+                                     config["run"]["word_length"])
+            made.append(self.meta)
+
+        def wait(self):
+            return {**self.meta, "seconds": 0.0, "cache_hit": False}
+
+        def kill(self):
+            pass
+
+    monkeypatch.setattr(harness, "cell", lambda workload: (
+        bench, entry, config, dict(EDIT_TRAFFIC)))
+    monkeypatch.setattr(harness, "Inputs", Inputs)
+    return config, made
+
+
+def _run_edit(capsys):
+    rc = harness.main(["--workload", EDIT, "--seed", "3000000041",
+                       "--seconds", "0.3", "--trace", "0"],
+                      on_card=False, build=False)
+    captured = capsys.readouterr()
+    assert rc == 0
+    return json.loads(captured.out.strip().splitlines()[-1]), captured.err
+
+
+def _base_hamming(packed, pa, pb):
+    """Bases that differ between the packed words of each pair."""
+    z = (packed[pa] ^ packed[pb]).astype(np.uint32)
+    z = (z | (z >> np.uint32(1))) & np.uint32(0x55555555)
+    return np.bitwise_count(z).sum(axis=1)
+
+
+def test_edit_configuration_run_is_correct(bench_env, capsys, monkeypatch):
+    _edit_cell(monkeypatch)
+    line, err = _run_edit(capsys)
+    assert line["correct"] is True and line["failed"] == 0
+    assert all(c["value"] == 0 for c in line["checks"].values())
+    route = next(ln for ln in err.splitlines() if ln.startswith("# route:"))
+    assert '"metric": "edit"' in route
+    ref = next(ln for ln in err.splitlines() if ln.startswith("# reference:"))
+    assert " 0 candidates" not in ref
+
+
+def test_dropped_levenshtein_pair_is_not_correct(bench_env, capsys,
+                                                 monkeypatch):
+    """One pair within two edits but not within two mismatches, taken out
+    of the neighbour search's answer."""
+    from humid_tpu_torch import pipeline
+
+    _edit_cell(monkeypatch)
+    orig, dropped = pipeline.find_neighbor_pairs, []
+
+    def drop_one(packed, max_dist, **kw):
+        pa, pb = orig(packed, max_dist, **kw)
+        assert kw["metric"] == "edit"
+        far = np.flatnonzero(_base_hamming(packed, pa, pb) > max_dist)
+        keep = np.ones(len(pa), bool)
+        keep[far[:1]] = False
+        dropped.append(len(far) > 0)
+        return pa[keep], pb[keep]
+
+    monkeypatch.setattr(pipeline, "find_neighbor_pairs", drop_one)
+    line, _ = _run_edit(capsys)
+    assert dropped and all(dropped)
+    assert line["correct"] is False
+    assert line["checks"]["neighbour_degrees_differing"]["value"] > 0
+
+
+def test_readers_see_the_flags_and_the_reference(bench_env, capsys,
+                                                 monkeypatch):
+    config, _ = _edit_cell(monkeypatch)
+    orig, seen = harness.read_metric, []
+
+    def read_metric(name, ctx):
+        seen.append(ctx)
+        return orig(name, ctx)
+
+    monkeypatch.setattr(harness, "read_metric", read_metric)
+    rc = harness.main(["--workload", EDIT, "--seed", "3000000041",
+                       "--seconds", "0.2", "--trace", "1"],
+                      on_card=False, build=False)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and line["correct"] is True
+    assert seen and all(ctx is seen[0] for ctx in seen)
+    ctx = seen[0]
+    assert ctx.flags == config["run"] and ctx.flags["edit"] is True
+    assert ctx.unique == len(ctx.ref.keys) > 0
+    assert ctx.pairs == int(ctx.ref.degree.sum()) // 2
+    assert ctx.ref.candidates >= ctx.pairs > 0
+    # The Hamming phase's readers find nothing in an edit run.
+    assert "neighbours_ms" not in line["metrics"]
+    assert harness.read_metric("neighbours_ms", ctx) is None
+
+
+@pytest.mark.parametrize("run", [{"maximum": True}, {"radius": 3}],
+                         ids=["maximum", "unknown"])
+def test_unmodelled_flag_is_refused_before_set_up(bench_env, capsys,
+                                                  monkeypatch, run):
+    from humid_tpu_torch import pipeline
+
+    _, made = _edit_cell(monkeypatch, **run)
+    runs = []
+    monkeypatch.setattr(pipeline, "run", lambda *a, **kw: runs.append(1))
+    key = next(iter(run))
+    with pytest.raises(SystemExit, match=key):
+        harness.main(["--workload", EDIT, "--seed", "5", "--seconds", "0.1",
+                      "--trace", "0"], on_card=False, build=False)
+    assert not made and not runs
+    assert capsys.readouterr().out == ""
+
+
+def test_control_is_not_correct_under_edit(bench_env, tmp_path, monkeypatch):
+    config, _ = _edit_cell(monkeypatch)
+    meta = indel_sample(config, EDIT_TRAFFIC, 2147483659, str(tmp_path),
+                        EDIT_INDELS, config["run"]["word_length"])
     checks = control.readings(meta["files"], config["run"])
     assert checks["neighbour_degrees_differing"]["value"] > 0
     assert checks["stats_files_differing"]["value"] > 0

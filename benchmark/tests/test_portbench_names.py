@@ -53,7 +53,7 @@ def test_per_layer_reader_found_by_name(metric):
 
     path = os.path.join(BENCH, "metrics", f"{metric['name']}.py")
     assert os.path.exists(path)
-    ctx = harness.Context([], {}, {}, unique=0, pairs=0, lanes=2)
+    ctx = harness.Context([], {}, unique=0, pairs=0, lanes=2)
     assert harness.read_metric(metric["name"], ctx) is None
     assert metric["moves"] in {m["name"] for m in BENCHMARK["end_to_end"]}
 

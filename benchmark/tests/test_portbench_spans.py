@@ -48,7 +48,7 @@ EXPECTED = {
 
 
 def _ctx(timings):
-    return harness.Context(timings, {}, {}, unique=0, pairs=0, lanes=2)
+    return harness.Context(timings, {}, unique=0, pairs=0, lanes=2)
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))
@@ -86,5 +86,4 @@ def test_traced_run_reports_the_span_metrics(bench_env, capsys):
         <= m["pass1_ms"]
     assert 0 < m["neighbours_host_ms"] < m["neighbours_ms"]
     assert m["unphased_ms"] >= 0
-    # The phase now holds the writer that the harness times.
-    assert m["stats_phase_ms"] >= m["stats_ms"]
+    assert m["stats_phase_ms"] > 0
