@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from .._device import resolve_device
 from .._util import avail_bytes
+from ..phaselog import no_span
 from .hamming import lanes_tensor
 
 #: Bytes one evaluated pair occupies during the DP, per band cell: the
@@ -123,7 +124,8 @@ def _wait(dev: torch.device) -> None:
 
 def edit_pairs_verify(packed: np.ndarray, a: np.ndarray, b: np.ndarray,
                       max_dist: int, word_length: int, batch: int = 1 << 20,
-                      device: str | torch.device | None = None):
+                      device: str | torch.device | None = None, span=None,
+                      info: dict | None = None):
     """Keep the candidate pairs (a[i], b[i]) within edit distance
     ``max_dist``, in their order (the contract of the host filter,
     csrc/hostops.cpp::edit_filter_pairs).
@@ -131,30 +133,40 @@ def edit_pairs_verify(packed: np.ndarray, a: np.ndarray, b: np.ndarray,
     The packed table goes to the device once; every batch of ``batch``
     pairs gathers its rows there, unpacks them and runs the pairwise DP.
     The keep flags of all batches land in one pinned buffer and the host
-    waits for the device once, after the last batch."""
+    waits for the device once, after the last batch.
+
+    ``span`` (a span callable; None times nothing) opens "verify" (the
+    table's upload, the pinning, and every batch's copies, gathers and
+    DP launches) and "wait verify" (the host blocked on the device, and
+    the keep flags read back).  ``info`` receives "verify_batches"."""
     n = len(a)
     if n == 0:
         return a, b
-    dev = resolve_device(device)
-    lanes = lanes_tensor(packed, dev)
-    on_card = dev.type == "cuda"
-    keep = torch.empty(n, dtype=torch.bool, pin_memory=on_card)
-    ia = torch.from_numpy(np.ascontiguousarray(a, np.int64))
-    ib = torch.from_numpy(np.ascontiguousarray(b, np.int64))
-    if on_card:
-        ia, ib = ia.pin_memory(), ib.pin_memory()
-    for lo in range(0, n, batch):
-        hi = min(n, lo + batch)
-        codes_a = _unpack(lanes.index_select(
-            0, ia[lo:hi].to(dev, non_blocking=True)), word_length)
-        codes_b = _unpack(lanes.index_select(
-            0, ib[lo:hi].to(dev, non_blocking=True)), word_length)
-        dist = _banded_levenshtein_pairs(codes_a, codes_b, int(max_dist),
-                                         word_length)
-        keep[lo:hi].copy_(dist <= max_dist, non_blocking=True)
-    if on_card:
-        _wait(dev)
-    keep = keep.numpy()
+    span = span or no_span
+    with span("verify"):
+        dev = resolve_device(device)
+        lanes = lanes_tensor(packed, dev)
+        on_card = dev.type == "cuda"
+        keep = torch.empty(n, dtype=torch.bool, pin_memory=on_card)
+        ia = torch.from_numpy(np.ascontiguousarray(a, np.int64))
+        ib = torch.from_numpy(np.ascontiguousarray(b, np.int64))
+        if on_card:
+            ia, ib = ia.pin_memory(), ib.pin_memory()
+        for lo in range(0, n, batch):
+            hi = min(n, lo + batch)
+            codes_a = _unpack(lanes.index_select(
+                0, ia[lo:hi].to(dev, non_blocking=True)), word_length)
+            codes_b = _unpack(lanes.index_select(
+                0, ib[lo:hi].to(dev, non_blocking=True)), word_length)
+            dist = _banded_levenshtein_pairs(codes_a, codes_b, int(max_dist),
+                                             word_length)
+            keep[lo:hi].copy_(dist <= max_dist, non_blocking=True)
+    if info is not None:
+        info["verify_batches"] = -(-n // batch)
+    with span("wait verify"):
+        if on_card:
+            _wait(dev)
+        keep = keep.numpy()
     return a[keep], b[keep]
 
 

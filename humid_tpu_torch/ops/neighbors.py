@@ -314,9 +314,12 @@ def find_neighbor_pairs(
         strategies "shards" (mesh size) and "ring_fallbacks" (1 if a
         forced ring went to the dense sweep because a block exceeded the
         ring's cap, else 0), and for the shifted edit searches
-        "candidates" (pairs the joins produced) and "join_cap_fallbacks"
-        (1 if the search went to the dense engine because a join exceeded
-        ``join_cap``, else 0); for the pigeonhole runs engines
+        "candidates" (pairs the joins produced), "distinct_candidates"
+        (the pairs left after their dedupe, which the DP verifies),
+        "verify_batches" (the DP's batches), "edit_pairs" (the pairs
+        kept) and "join_cap_fallbacks" (1 if the search went to the dense
+        engine because a join exceeded ``join_cap``, else 0); for the
+        pigeonhole runs engines
         "candidates" (in-run pairs), "dense_fallbacks" (1 if giant runs
         sent the search to the dense sweep, else 0) and, on the device,
         "d_max" (the sweep depth); under a shard also "shard".
@@ -329,7 +332,9 @@ def find_neighbor_pairs(
       span: a span callable (:meth:`..phaselog.PhaseLog.spans_under`;
         None times nothing) that the dense Hamming sweep opens around its
         steps: "inputs" (rows and tile list), "upload", "wait K1" and
-        "pairs"; the other engines open none.
+        "pairs"; the shifted edit search around its own: "joins",
+        "dedupe", "verify" and "wait verify"
+        (:func:`find_edit_pairs_shifted`); the other engines open none.
 
     Returns:
       (a, b): int64 arrays with a < b, sorted by (a, b).
@@ -380,7 +385,7 @@ def find_neighbor_pairs(
         try:
             return find_edit_pairs_shifted(
                 packed, max_dist, word_length=word_length, join_cap=join_cap,
-                device=dev, info=info, shard=shard)
+                device=dev, info=info, shard=shard, span=span)
         except JoinCapExceeded:
             if not auto_chosen:
                 raise
@@ -1166,6 +1171,7 @@ def find_edit_pairs_shifted(
     device: str | torch.device | None = None,
     info: dict | None = None,
     shard: tuple[int, int] | None = None,
+    span=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Subquadratic Levenshtein neighbour pairs via shifted segments.
 
@@ -1187,7 +1193,15 @@ def find_edit_pairs_shifted(
     ``shard=(part, n_parts)`` keeps the join keys this part owns (salt:
     the (segment, shift) index): equal keys have one owner, so each
     candidate comes from one part per join.  The cap is checked on the
-    whole join first, so every part raises together."""
+    whole join first, so every part raises together.
+
+    ``span`` (a span callable; None times nothing) opens "joins" (the
+    segment keys, their sorts and the merge joins), "dedupe" (the
+    concatenation and :func:`_dedupe_pairs`) and, through
+    :func:`.edit.edit_pairs_verify`, "verify" and "wait verify".
+    ``info`` receives "candidates" (the joins' output),
+    "distinct_candidates" (after the dedupe), "verify_batches" and
+    "edit_pairs" (the pairs kept)."""
     shard = _check_shard(shard)
     u, w = packed.shape
     if u <= 1 or max_dist == 0:
@@ -1195,27 +1209,36 @@ def find_edit_pairs_shifted(
     if join_cap is None:
         join_cap = default_join_cap()
     info = {} if info is None else info
+    span = span or no_span
     parts_a, parts_b = [], []
-    for s, d, ka, oa, kb, ob in shifted_joins(packed, max_dist, word_length):
-        where = f"(segment {s}, shift {d})"
-        if shard is not None:
-            ka_sorted = ka[oa]
-            _join_need(ka_sorted, ka_sorted if d == 0 else kb[ob], d == 0,
-                       join_cap, where)
-            salt = s * (2 * max_dist + 1) + d + max_dist
-            oa = oa[_owned_mask(ka, shard, salt)[oa]]
-            ob = oa if d == 0 else ob[_owned_mask(kb, shard, salt)[ob]]
-        a, b = _merge_join(ka, oa, kb, ob, d == 0, join_cap, where)
-        parts_a.append(a)
-        parts_b.append(b)
-    a = np.concatenate(parts_a)
-    b = np.concatenate(parts_b)
-    info["candidates"] = len(a)
+    with span("joins"):
+        for s, d, ka, oa, kb, ob in shifted_joins(packed, max_dist,
+                                                  word_length):
+            where = f"(segment {s}, shift {d})"
+            if shard is not None:
+                ka_sorted = ka[oa]
+                _join_need(ka_sorted, ka_sorted if d == 0 else kb[ob],
+                           d == 0, join_cap, where)
+                salt = s * (2 * max_dist + 1) + d + max_dist
+                oa = oa[_owned_mask(ka, shard, salt)[oa]]
+                ob = oa if d == 0 else ob[_owned_mask(kb, shard, salt)[ob]]
+            a, b = _merge_join(ka, oa, kb, ob, d == 0, join_cap, where)
+            parts_a.append(a)
+            parts_b.append(b)
+    with span("dedupe"):
+        a = np.concatenate(parts_a)
+        b = np.concatenate(parts_b)
+        info["candidates"] = len(a)
+        if len(a):
+            a, b = _dedupe_pairs(a, b)
+    info["distinct_candidates"] = len(a)
     if not len(a):
+        info.update(verify_batches=0, edit_pairs=0)
         return _empty_pairs()
-    a, b = _dedupe_pairs(a, b)
-    return E.edit_pairs_verify(packed, a, b, max_dist, word_length,
-                               device=device)
+    a, b = E.edit_pairs_verify(packed, a, b, max_dist, word_length,
+                               device=device, span=span, info=info)
+    info["edit_pairs"] = len(a)
+    return a, b
 
 
 def pairs_to_csr(

@@ -50,7 +50,13 @@ for it):
   the device), ``<phase>/wait K1`` (the host's wait for each launch of
   kernel K1; on the CPU, the plain version that stands in for it),
   ``<phase>/pairs`` (the sort and the copies back) and ``<phase>/csr``
-  (the pair list to CSR).
+  (the pair list to CSR).  The shifted edit search (-e, "Calculating
+  neighbours using Levenshtein distance") opens ``<phase>/joins`` (the
+  segment keys, their sorts and the merge joins), ``<phase>/dedupe``
+  (the candidates' concatenation, sort and dedupe), ``<phase>/verify``
+  (the DP's batches: pinning, index copies, gathers, launches) and
+  ``<phase>/wait verify`` (the host blocked on the device) before
+  ``<phase>/csr``.
 """
 
 from __future__ import annotations

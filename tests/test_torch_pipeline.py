@@ -258,6 +258,12 @@ def test_midscale_edit_matches_humid_ref(opts, engine, midscale_edit,
     assert res.unique > 2048
     got = dict(res.extra["engine"])
     assert got.pop("candidates", 1) > 0
+    if got["strategy"] == "runs":
+        # The shifted search's counters, which depend on the data: the
+        # pairs it kept, and the DP's batches of 2^20 distinct candidates.
+        assert got.pop("edit_pairs") == int(res.degree.sum()) // 2
+        assert got.pop("verify_batches") == -(
+            -got.pop("distinct_candidates") // (1 << 20))
     assert got == engine
     assert "Calculating neighbours using Levenshtein distance" in \
         res.extra["timings"]

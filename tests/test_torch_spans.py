@@ -26,6 +26,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 from genfastq import gen_dataset  # noqa: E402
 
 NEIGH = "Calculating neighbours using Hamming distance"
+LEV = "Calculating neighbours using Levenshtein distance"
 STATS = "Calculating count and neighbour stats"
 PHASES = {"Determing nucleotides to take", "Reading data", NEIGH,
           "Calculating directional clusters", "Writing filtered results",
@@ -34,6 +35,9 @@ COMMON = PHASES | {"run", "set-up", "outputs", "Reading data/wait reader",
                    "Reading data/wait pack", "Reading data/concat",
                    f"{NEIGH}/csr"}
 DENSE = {f"{NEIGH}/{s}" for s in ("inputs", "upload", "wait K1", "pairs")}
+#: The shifted edit search's spans (-e, strategy "runs").
+SHIFTED = {f"{LEV}/{s}" for s in ("joins", "dedupe", "verify",
+                                   "wait verify")}
 #: Route -> (its environment, the names beyond COMMON that it gives).
 ROUTES = {
     "dense": ({"HUMID_TPU_TORCH_STRATEGY": "dense"},
@@ -43,7 +47,17 @@ ROUTES = {
                             DENSE | {"unique counting"}),
     "runs": ({"HUMID_TPU_TORCH_STRATEGY": "runs"}, {"unique counting"}),
     "fused": ({"HUMID_TPU_TORCH_FUSED": "1"}, {"unique counting (fused)"}),
+    "edit": ({"HUMID_TPU_TORCH_STRATEGY": "runs"},
+             SHIFTED | {"unique counting"}),
 }
+#: Route -> the flags ``run`` takes on it (-e -m 2 on the edit route).
+FLAGS = {"edit": {"edit": True, "distance": 2}}
+
+
+def _common(route):
+    """COMMON under the route's neighbour phase."""
+    phase = LEV if FLAGS.get(route, {}).get("edit") else NEIGH
+    return phase, {k.replace(NEIGH, phase) for k in COMMON}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,18 +128,22 @@ def test_run_gives_its_span_tree(route, files, tmp_path, monkeypatch):
     env, extra = ROUTES[route]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    res = _run(files, tmp_path / "o")
+    neigh, common = _common(route)
+    res = _run(files, tmp_path / "o", **FLAGS.get(route, {}))
     tim = res.extra["timings"]
-    assert set(tim) == COMMON | extra
+    assert set(tim) == common | extra
     # The children of ``run`` tile it: they sum to ``run`` within 2%.
     kids = sum(_children_of_run(tim).values())
     assert kids <= tim["run"]
     assert tim["run"] - kids <= 0.02 * tim["run"], (tim["run"], kids)
     # A phase's spans lie inside it.
-    for phase in ("Reading data", NEIGH):
+    for phase in ("Reading data", neigh):
         below = sum(v for k, v in tim.items()
                     if k.startswith(phase + "/"))
         assert 0 < below <= tim[phase]
+    # Each step of the neighbour search took time.
+    assert all(tim[k] > 0 for k in tim if k.startswith(neigh + "/")
+               and (k in extra or k.endswith("/csr")))
 
 
 def test_span_opened_per_batch_is_summed(files, tmp_path, monkeypatch):
@@ -200,3 +218,56 @@ def test_log_bytes_equal_an_unspanned_run(files, tmp_path, monkeypatch):
     res = _run(files, tmp_path / "b", log_name=str(tmp_path / "plain.log"))
     assert set(res.extra["timings"]) == PHASES
     assert norm(tmp_path / "spanned.log") == norm(tmp_path / "plain.log")
+
+
+def test_edit_search_counts_its_candidates_batches_and_pairs(
+        files, tmp_path, monkeypatch):
+    """The shifted edit search's counters: the DP's batches are the
+    distinct candidates over the batch, rounded up, and the pairs kept
+    are the run's neighbour pairs."""
+    from humid_tpu_torch.ops import edit as E
+
+    batch, orig = 256, E.edit_pairs_verify
+    monkeypatch.setattr(E, "edit_pairs_verify", lambda *a, **kw: orig(
+        *a, **{**kw, "batch": batch}))
+    monkeypatch.setenv("HUMID_TPU_TORCH_STRATEGY", "runs")
+    res = _run(files, tmp_path / "o", **FLAGS["edit"])
+    eng = res.extra["engine"]
+    assert eng["metric"] == "edit" and eng["strategy"] == "runs"
+    assert eng["candidates"] >= eng["distinct_candidates"] > batch
+    assert eng["verify_batches"] == -(-eng["distinct_candidates"] // batch)
+    assert eng["edit_pairs"] == int(res.degree.sum()) // 2 > 0
+    assert eng["join_cap_fallbacks"] == 0
+
+
+def test_edit_search_gives_the_same_pairs_without_spans(tmp_path):
+    """``span=None`` times nothing and changes no pair."""
+    from humid_tpu_torch import words as W
+    from humid_tpu_torch.ops import find_neighbor_pairs
+
+    rng = np.random.default_rng(20)
+    codes = rng.integers(0, 4, (600, 24)).astype(np.uint8)
+    # Copies with one base inserted (the last pushed out) or deleted (the
+    # last repeated).
+    copies = codes[rng.integers(0, 600, 300)].copy()
+    for row, pos, ins in zip(copies, rng.integers(0, 23, 300),
+                             rng.random(300) < 0.5):
+        if ins:
+            row[pos + 1:] = row[pos:-1].copy()
+            row[pos] = rng.integers(0, 4)
+        else:
+            row[pos:-1] = row[pos + 1:].copy()
+    packed = np.unique(W.pack_words(np.concatenate([codes, copies])),
+                       axis=0)
+    log = phaselog.PhaseLog(str(tmp_path / "x.log"))
+    info = {}
+    spanned = find_neighbor_pairs(packed, 2, metric="edit", word_length=24,
+                                  strategy="runs", device="cpu", info=info,
+                                  span=log.spans_under(LEV))
+    log.close()
+    plain = find_neighbor_pairs(packed, 2, metric="edit", word_length=24,
+                                strategy="runs", device="cpu", span=None)
+    for x, y in zip(spanned, plain):
+        np.testing.assert_array_equal(x, y)
+    assert info["edit_pairs"] == len(plain[0]) > 0
+    assert {m for m, _ in log.span_timings} == SHIFTED
