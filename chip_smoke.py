@@ -306,6 +306,7 @@ Scratch files go to build/chip_smoke/ inside the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1391,15 +1392,23 @@ def edit_engines_phase(device, table_l33, table_l24, uniq_1m, card) -> dict:
         **edit_bounds(pairs, m, length, card)}
 
     # The verify program on the candidates of the 1M-read table, and the
-    # host parts of the shifted search around it.
-    t0 = time.perf_counter()
-    parts = [N._merge_join(ka, oa, kb, ob, d == 0, N.default_join_cap(),
-                           f"(segment {s}, shift {d})")
-             for s, d, ka, oa, kb, ob in N.shifted_joins(uniq_1m, 1, 24)]
-    t1 = time.perf_counter()
-    ca, cb = N._dedupe_pairs(np.concatenate([p[0] for p in parts]),
-                             np.concatenate([p[1] for p in parts]))
-    t2 = time.perf_counter()
+    # host parts of the shifted search around it (the joins and their
+    # first-join union), timed by the search's own spans.
+    host_ms, info = {}, {}
+
+    @contextlib.contextmanager
+    def host_span(name):
+        t0 = time.perf_counter()
+        yield
+        host_ms[name] = (time.perf_counter() - t0) * 1e3
+
+    ca, cb = N._shifted_candidates(uniq_1m, 1, 24, N.default_join_cap(),
+                                   None, host_span, info)
+    if info["candidates"] - info["first_join_dropped"] != len(ca) \
+            or len(N._dedupe_pairs(ca, cb)[0]) != len(ca):
+        raise SmokeFailure(f"phase 11: the first-join union of {len(ca)} "
+                           f"pairs is not distinct, or its counters "
+                           f"{json.dumps(info)} disagree")
     verify = lambda: E.edit_pairs_verify(uniq_1m, ca, cb, 1, 24,
                                          device=device)
     kept = verify()
@@ -1411,10 +1420,10 @@ def edit_engines_phase(device, table_l33, table_l24, uniq_1m, card) -> dict:
     dp = lambda: E._banded_levenshtein_pairs(
         E._unpack(lanes[ia], 24), E._unpack(lanes[ib], 24), 1, 24)
     programs["verify_1M_read_candidates"] = {
-        "uniques": len(uniq_1m), "joins": len(parts),
-        "candidates": int(sum(len(p[0]) for p in parts)),
+        "uniques": len(uniq_1m), "candidates": info["candidates"],
+        "first_join_dropped": info["first_join_dropped"],
         "pairs_evaluated": len(ca), "kept": len(kept[0]),
-        "joins_host_ms": (t1 - t0) * 1e3, "dedupe_host_ms": (t2 - t1) * 1e3,
+        "joins_host_ms": host_ms["joins"], "dedupe_host_ms": host_ms["dedupe"],
         "dp_ms": time_cuda(dp, 5), "dp_launches": kernels_launched(
             dp, "verify_dp"),
         "ms": time_cuda(verify, 5),
@@ -1466,6 +1475,17 @@ def edit_end_to_end_phase(e2e: dict, device: str = "cuda") -> dict:
             f"{json.dumps(engine)}, timings "
             f"{json.dumps(res.extra['timings'])}")
         candidates = engine.pop("candidates", 0)
+        # Counters that depend on the data: the shifted search's, which
+        # must agree with each other, and the UMI parse's.
+        dropped = engine.pop("first_join_dropped", None)
+        distinct = engine.pop("distinct_candidates", None)
+        if name == "auto" and (dropped is None
+                               or candidates - dropped != distinct):
+            raise SmokeFailure(f"phase 12 {name}: the candidates less "
+                               f"those an earlier join found are not the "
+                               f"distinct candidates: {res.extra['engine']}")
+        for counter in ("verify_batches", "edit_pairs", "umi_native_rows"):
+            engine.pop(counter, None)
         if engine.pop("unique") not in ("host", "device") \
                 or engine != want or not candidates:
             raise SmokeFailure(f"phase 12 {name}: unexpected engine record "

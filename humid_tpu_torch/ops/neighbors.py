@@ -68,11 +68,15 @@ from .hamming import lanes_tensor, onehot_tile_pairs
 from .unique import _stable_argsort_u64, _unique_u64
 
 try:
-    from .._hostops import merge_join_pairs as _merge_join_native
     from .._hostops import run_pairs as _run_pairs_native
     from .._hostops import run_pairs_hamming as _run_pairs_hamming_native
 except ImportError:  # pragma: no cover - extension not built
-    _merge_join_native = _run_pairs_native = _run_pairs_hamming_native = None
+    _run_pairs_native = _run_pairs_hamming_native = None
+try:
+    from .._cedit import first_join_pairs as _first_join_native
+    from .._cedit import merge_join_pairs as _merge_join_native
+except ImportError:  # pragma: no cover - extension not built
+    _first_join_native = _merge_join_native = None
 
 STRATEGY_ENV_VAR = "HUMID_TPU_TORCH_STRATEGY"
 #: Replaces ``impl=None`` of :func:`find_neighbor_pairs` (an explicit
@@ -315,7 +319,8 @@ def find_neighbor_pairs(
         forced ring went to the dense sweep because a block exceeded the
         ring's cap, else 0), and for the shifted edit searches
         "candidates" (pairs the joins produced), "distinct_candidates"
-        (the pairs left after their dedupe, which the DP verifies),
+        (the pairs left after their dedupe, which the DP verifies; the
+        shifted search also gives "first_join_dropped", the difference),
         "verify_batches" (the DP's batches), "edit_pairs" (the pairs
         kept) and "join_cap_fallbacks" (1 if the search went to the dense
         engine because a join exceeded ``join_cap``, else 0); for the
@@ -1062,22 +1067,24 @@ def _join_size(ka_sorted: np.ndarray, kb_sorted: np.ndarray,
     return int((ca[ia] * cb[ib]).sum())
 
 
-def _merge_join_numpy(ka_sorted: np.ndarray, oa: np.ndarray,
-                      kb_sorted: np.ndarray, ob: np.ndarray,
-                      self_join: bool):
-    """The equal-key merge join in numpy (the host extension's
+def _merge_join_numpy(ka: np.ndarray, oa: np.ndarray, kb: np.ndarray,
+                      ob: np.ndarray, self_join: bool):
+    """The equal-key merge join in numpy (the port's host extension's
     ``merge_join_pairs`` when that is not built): for every key both
-    sorted views hold, the cross product of its rows in ``oa`` and in
-    ``ob``, as (min, max) with self pairs dropped; a self join (both
-    views the same) emits each unordered pair once.  The pair set equals
-    the native join's; the order differs, and the caller dedupes."""
+    views hold (``oa`` / ``ob`` sort ``ka`` / ``kb``), the cross product
+    of its rows in ``oa`` and in ``ob``, as (min, max) with self pairs
+    dropped, each unordered pair once: a self join (both views the same)
+    emits i < j, a cross join skips the row pair (a from A, b from B)
+    where a > b and ``ka[b] == kb[a]``, since (b, a) comes out too.  The
+    pair set equals the native join's; the order differs."""
+    ka_sorted = ka[oa]
     va, ca = _sorted_run_counts(ka_sorted)
     sa = np.cumsum(ca) - ca
     if self_join:
         # The in-run pairs of the runs engine's fallback; ``oa`` is a
         # permutation, so no row meets itself.
         return _run_pairs_fallback(oa, sa, ca)
-    vb, cb = _sorted_run_counts(kb_sorted)
+    vb, cb = _sorted_run_counts(kb[ob])
     sb = np.cumsum(cb) - cb
     ia, ib = _matching_runs(va, vb)
     # Every row of a matched A run pairs with the whole B run.
@@ -1086,7 +1093,7 @@ def _merge_join_numpy(ka_sorted: np.ndarray, oa: np.ndarray,
     left = np.repeat(rows_a, n_b)
     right = np.repeat(np.repeat(sb[ib], ca[ia]), n_b) + concat_aranges(n_b)
     a, b = oa[left], ob[right]
-    keep = a != b
+    keep = (a != b) & ~((a > b) & (ka[b] == kb[a]))
     a, b = a[keep], b[keep]
     return np.minimum(a, b), np.maximum(a, b)
 
@@ -1104,26 +1111,28 @@ def _join_need(ka_sorted, kb_sorted, self_join: bool, join_cap: int,
     return need
 
 
-def _merge_join(ka, oa, kb, ob, self_join: bool, join_cap: int, where: str):
-    """One (segment, shift) join: candidate pairs (a, b), a < b, of the
-    rows whose keys ``ka[oa]`` and ``kb[ob]`` (``oa``/``ob`` sort them)
-    are equal.  The output size is reckoned from the run lengths first,
-    so :class:`JoinCapExceeded` is raised before anything is allocated."""
-    ka_sorted = ka[oa]
-    kb_sorted = ka_sorted if self_join else kb[ob]
-    need = _join_need(ka_sorted, kb_sorted, self_join, join_cap, where)
+def _merge_join_into(ka, oa, kb, ob, ka_sorted, kb_sorted, self_join: bool,
+                     outa, outb, where: str) -> int:
+    """One (segment, shift) join: writes the candidate pairs (a, b),
+    a < b, each once, of the rows whose keys ``ka[oa]`` and ``kb[ob]``
+    (``oa``/``ob`` sort them; ``ka_sorted``/``kb_sorted`` are those
+    sorted keys, from which :func:`_join_need` sized the join) are
+    equal, to the front of ``outa`` / ``outb``, which hold at least that
+    size; returns how many."""
     if _merge_join_native is None:
-        return _merge_join_numpy(ka_sorted, oa, kb_sorted, ob, self_join)
-    outa = np.empty(need, np.int64)
-    outb = np.empty(need, np.int64)
+        a, b = _merge_join_numpy(ka, oa, kb, ob, self_join)
+        outa[:len(a)] = a
+        outb[:len(b)] = b
+        return len(a)
     n = _merge_join_native(
         np.ascontiguousarray(ka), np.ascontiguousarray(oa),
         np.ascontiguousarray(kb), np.ascontiguousarray(ob),
+        np.ascontiguousarray(ka_sorted), np.ascontiguousarray(kb_sorted),
         int(self_join), outa, outb)
     if n < 0:
         raise RuntimeError(f"merge join for {where} produced {-n} pairs, "
-                           f"more than the {need} its run lengths allow")
-    return outa[:n], outb[:n]
+                           f"more than the {len(outa)} its buffer holds")
+    return n
 
 
 def default_join_cap() -> int:
@@ -1162,6 +1171,113 @@ def shifted_joins(packed: np.ndarray, max_dist: int, word_length: int):
                 yield s, d, ka, oa, kb, _stable_argsort_u64(kb)
 
 
+def _key_column(keys: list, key: np.ndarray) -> int:
+    """The index of ``key`` (by identity) in ``keys``, appended where
+    absent: each key array of the joins becomes one column of the
+    first-join table (:func:`_first_join_union`)."""
+    for c, k in enumerate(keys):
+        if k is key:
+            return c
+    keys.append(key)
+    return len(keys) - 1
+
+
+def _first_join_numpy(table, cols, starts, a, b) -> int:
+    """The port's host extension's ``first_join_pairs`` in numpy (when
+    that is not built): the same pairs, left in the same order."""
+    total = starts[-1]
+    drop = np.zeros(total, bool)
+    for p in range(1, len(cols)):
+        x, y = a[starts[p]:starts[p + 1]], b[starts[p]:starts[p + 1]]
+        found = drop[starts[p]:starts[p + 1]]
+        for ca, cb in cols[:p]:
+            ka, kb = table[:, ca], table[:, cb]
+            found |= (ka[x] == kb[y]) | (ka[y] == kb[x])
+    holes = np.flatnonzero(drop)
+    n = total - len(holes)
+    # The survivors at or above n, from the top down, fill the holes
+    # below it, in ascending order.
+    low = holes[holes < n]
+    src = n + np.flatnonzero(~drop[n:])[::-1]
+    a[low] = a[src]
+    b[low] = b[src]
+    return n
+
+
+def _first_join_union(keys: list, cols: list, starts: list, a, b):
+    """The distinct candidates of the (segment, shift) joins, without a
+    sort, in place: join p's pairs (``a`` / ``b`` from ``starts[p]`` to
+    ``starts[p + 1]``, each unordered pair once, as :func:`_merge_join_into`
+    gives them) less those an earlier join finds, in either orientation
+    — the rule of the reference's ``edit_pairs``, so each candidate is
+    kept by the first join that finds it alone.  ``keys`` are the joins'
+    key arrays, laid out here as a row-major [U, K] table of the
+    narrowest unsigned integers that hold them (a pair reads two of its
+    rows); ``cols[p]`` names join p's canonical and shifted columns.
+    The dropped pairs' places are filled by the last survivors; returns
+    the front of ``a`` / ``b`` that holds the union."""
+    if not starts[-1]:
+        return a[:0], b[:0]
+    top = max(int(key.max()) for key in keys)
+    dtype = next(t for t in (np.uint16, np.uint32, np.uint64)
+                 if top <= np.iinfo(t).max)
+    table = np.empty((len(keys[0]), len(keys)), dtype)
+    for c, key in enumerate(keys):
+        table[:, c] = key
+    if _first_join_native is None:
+        n = _first_join_numpy(table, cols, starts, a, b)
+    else:
+        n = _first_join_native(
+            table, table.shape[0], table.shape[1],
+            np.array([c for c, _ in cols], np.int64),
+            np.array([c for _, c in cols], np.int64),
+            np.array(starts, np.int64), a, b)
+    return a[:n], b[:n]
+
+
+def _shifted_candidates(packed, max_dist: int, word_length: int,
+                        join_cap: int, shard, span, info: dict):
+    """The distinct candidates of :func:`find_edit_pairs_shifted`, not
+    yet verified, in no order of pairs: the (segment, shift) joins in
+    the span "joins", written one after another into one buffer, and
+    their first-join union (:func:`_first_join_union`) in "dedupe".
+    Fills ``info``'s "candidates", "first_join_dropped" and
+    "distinct_candidates"."""
+    with span("joins"):
+        joins, keys, cols = [], [], []
+        for s, d, ka, oa, kb, ob in shifted_joins(packed, max_dist,
+                                                  word_length):
+            where = f"(segment {s}, shift {d})"
+            if shard is not None:
+                ka_sorted = ka[oa]
+                _join_need(ka_sorted, ka_sorted if d == 0 else kb[ob],
+                           d == 0, join_cap, where)
+                salt = s * (2 * max_dist + 1) + d + max_dist
+                oa = oa[_owned_mask(ka, shard, salt)[oa]]
+                ob = oa if d == 0 else ob[_owned_mask(kb, shard, salt)[ob]]
+            ka_sorted = ka[oa]
+            kb_sorted = ka_sorted if d == 0 else kb[ob]
+            need = _join_need(ka_sorted, kb_sorted, d == 0, join_cap, where)
+            joins.append((need, (ka, oa, kb, ob, ka_sorted, kb_sorted,
+                                 d == 0), where))
+            cols.append((_key_column(keys, ka), _key_column(keys, kb)))
+        # Each join writes its pairs after the one before it, into one
+        # buffer that the union then compacts in place.
+        a = np.empty(sum(need for need, _, _ in joins), np.int64)
+        b = np.empty(len(a), np.int64)
+        starts = [0]
+        for p, (_, join, where) in enumerate(joins):
+            starts.append(starts[-1] + _merge_join_into(
+                *join, a[starts[-1]:], b[starts[-1]:], where))
+            joins[p] = None
+    info["candidates"] = starts[-1]
+    with span("dedupe"):
+        a, b = _first_join_union(keys, cols, starts, a, b)
+    info["first_join_dropped"] = info["candidates"] - len(a)
+    info["distinct_candidates"] = len(a)
+    return a, b
+
+
 def find_edit_pairs_shifted(
     packed: np.ndarray,
     max_dist: int,
@@ -1181,27 +1297,31 @@ def find_edit_pairs_shifted(
     the indel balance d in [-m, m].  For every (segment, shift) the
     equal-key pairs of (segment value at canonical position) x (segment
     value at shifted position) are candidates, generated by a sorted
-    merge join on the host and verified with the banded Levenshtein DP
-    on ``device`` (:func:`.edit.edit_pairs_verify`).  Candidates ~ real
-    pairs + (m+1)(2m+1) * U^2/4^(L/(m+1)) random collisions: subquadratic
-    for typical word lengths, replacing the dense O(U^2) edit scan (findEditNeighbours,
-    humid.cc:140-158).
+    merge join on the host, each kept by the first join that finds it
+    alone (:func:`_first_join_union`), and verified with the banded
+    Levenshtein DP on ``device`` (:func:`.edit.edit_pairs_verify`).
+    Candidates ~ real pairs + (m+1)(2m+1) * U^2/4^(L/(m+1)) random
+    collisions: subquadratic for typical word lengths, replacing the
+    dense O(U^2) edit scan (findEditNeighbours, humid.cc:140-158).
 
     A join whose output would exceed ``join_cap`` (degenerate key space,
     e.g. all words sharing a segment) raises :class:`JoinCapExceeded`.
 
     ``shard=(part, n_parts)`` keeps the join keys this part owns (salt:
     the (segment, shift) index): equal keys have one owner, so each
-    candidate comes from one part per join.  The cap is checked on the
-    whole join first, so every part raises together.
+    candidate comes from one part per join, and the first-join rule,
+    which reads the whole key arrays, keeps it in the part that owns
+    its first join's key alone.  The cap is checked on the whole join
+    first, so every part raises together.
 
     ``span`` (a span callable; None times nothing) opens "joins" (the
     segment keys, their sorts and the merge joins), "dedupe" (the
-    concatenation and :func:`_dedupe_pairs`) and, through
+    first-join union, :func:`_first_join_union`) and, through
     :func:`.edit.edit_pairs_verify`, "verify" and "wait verify".
     ``info`` receives "candidates" (the joins' output),
-    "distinct_candidates" (after the dedupe), "verify_batches" and
-    "edit_pairs" (the pairs kept)."""
+    "first_join_dropped" (the candidates an earlier join had found),
+    "distinct_candidates" (the rest, which the DP verifies),
+    "verify_batches" and "edit_pairs" (the pairs kept)."""
     shard = _check_shard(shard)
     u, w = packed.shape
     if u <= 1 or max_dist == 0:
@@ -1210,35 +1330,18 @@ def find_edit_pairs_shifted(
         join_cap = default_join_cap()
     info = {} if info is None else info
     span = span or no_span
-    parts_a, parts_b = [], []
-    with span("joins"):
-        for s, d, ka, oa, kb, ob in shifted_joins(packed, max_dist,
-                                                  word_length):
-            where = f"(segment {s}, shift {d})"
-            if shard is not None:
-                ka_sorted = ka[oa]
-                _join_need(ka_sorted, ka_sorted if d == 0 else kb[ob],
-                           d == 0, join_cap, where)
-                salt = s * (2 * max_dist + 1) + d + max_dist
-                oa = oa[_owned_mask(ka, shard, salt)[oa]]
-                ob = oa if d == 0 else ob[_owned_mask(kb, shard, salt)[ob]]
-            a, b = _merge_join(ka, oa, kb, ob, d == 0, join_cap, where)
-            parts_a.append(a)
-            parts_b.append(b)
-    with span("dedupe"):
-        a = np.concatenate(parts_a)
-        b = np.concatenate(parts_b)
-        info["candidates"] = len(a)
-        if len(a):
-            a, b = _dedupe_pairs(a, b)
-    info["distinct_candidates"] = len(a)
+    a, b = _shifted_candidates(packed, max_dist, word_length, join_cap,
+                               shard, span, info)
     if not len(a):
         info.update(verify_batches=0, edit_pairs=0)
         return _empty_pairs()
     a, b = E.edit_pairs_verify(packed, a, b, max_dist, word_length,
                                device=device, span=span, info=info)
     info["edit_pairs"] = len(a)
-    return a, b
+    # The union is in no order of pairs; those kept go out sorted by
+    # (a, b).
+    order = np.lexsort((b, a))
+    return a[order], b[order]
 
 
 def pairs_to_csr(

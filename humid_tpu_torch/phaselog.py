@@ -53,10 +53,10 @@ for it):
   (the pair list to CSR).  The shifted edit search (-e, "Calculating
   neighbours using Levenshtein distance") opens ``<phase>/joins`` (the
   segment keys, their sorts and the merge joins), ``<phase>/dedupe``
-  (the candidates' concatenation, sort and dedupe), ``<phase>/verify``
-  (the DP's batches: pinning, index copies, gathers, launches) and
-  ``<phase>/wait verify`` (the host blocked on the device) before
-  ``<phase>/csr``.
+  (the first-join union of the candidates, with no sort),
+  ``<phase>/verify`` (the DP's batches: pinning, index copies, gathers,
+  launches) and ``<phase>/wait verify`` (the host blocked on the device)
+  before ``<phase>/csr``.
 """
 
 from __future__ import annotations

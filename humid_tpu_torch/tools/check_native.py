@@ -17,7 +17,7 @@ symbols), by the first compiler that has ASan's runtime
 (:func:`asan_toolchain`; a compiler that cannot link ``-fopenmp`` builds
 them without OpenMP, said on its own line).  Then, with that compiler's
 libasan preloaded, ``ASAN_OPTIONS=detect_leaks=0`` (the interpreter's
-own allocations live until exit) and HUMID_TPU_TORCH_DEVICE=cpu: the four
+own allocations live until exit) and HUMID_TPU_TORCH_DEVICE=cpu: the five
 extensions must import from the copy, ``tests/test_torch_native.py``
 (jax-free: each extension function against the port's fallback) must
 pass with nothing skipped, and ``fuzz_oracle`` must pass FUZZ_SEEDS
@@ -89,7 +89,7 @@ HOST_TESTS = ("tests/test_torch_native.py",)
 #: Files of tests/ the copy needs: the tests and their helpers.
 TEST_FILES = (*HOST_TESTS, "tests/genfastq.py", "tests/oracle.py")
 EXTENSIONS = ("_hostops", "io._cfastqio", "cluster._ccluster",
-              "io._cumi")
+              "io._cumi", "_cedit")
 SANITIZER_TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
 UNSUPPORTED = "Device not supported"
 #: fuzz_oracle configs the host half runs under ASan.

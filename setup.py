@@ -14,6 +14,9 @@ its own package path, and one more of its own:
   spans (csrc/umi_parse.cpp).  A source of its own, not a function of
   csrc/fastqio.cpp, because that file also builds the JAX package's
   extension and the parse exists for the port alone.
+* humid_tpu_torch._cedit — the -e search's merge joins and the union of
+  their pairs by the first join that finds each (csrc/edit_union.cpp),
+  kept out of csrc/hostops.cpp for the same reason.
 
 Its CUDA kernels are not built here: they are compiled with nvcc at
 first use (humid_tpu_torch/_build.py).
@@ -80,6 +83,12 @@ setup(
             "humid_tpu_torch.io._cumi",
             sources=["csrc/umi_parse.cpp"],
             extra_compile_args=["-O3", "-std=c++17"],
+        ),
+        Extension(
+            "humid_tpu_torch._cedit",
+            sources=["csrc/edit_union.cpp"],
+            extra_compile_args=["-O3", "-std=c++17", "-fopenmp"],
+            extra_link_args=["-fopenmp"],
         ),
     ],
 )

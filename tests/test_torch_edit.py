@@ -378,13 +378,13 @@ def _brute_join(ka, kb, self_join):
 def test_numpy_merge_join_against_brute_force(n_keys, self_join):
     rng = np.random.default_rng(n_keys + self_join)
     ka, oa, kb, ob = _join_case(rng, 120, n_keys, self_join)
-    a, b = N._merge_join_numpy(ka[oa], oa, kb[ob], ob, self_join)
+    a, b = N._merge_join_numpy(ka, oa, kb, ob, self_join)
     got = list(zip(a.tolist(), b.tolist()))
     want = _brute_join(ka, kb, self_join)
     assert set(got) == want
     assert all(x < y for x, y in got)  # no self pair, (min, max)
+    assert len(got) == len(want)  # each unordered pair once
     if self_join:
-        assert len(got) == len(want)  # each unordered pair once
         assert len(got) == N._join_size(ka[oa], kb[ob], True)
     else:
         assert len(got) <= N._join_size(ka[oa], kb[ob], False)
@@ -406,22 +406,27 @@ def test_numpy_merge_join_of_disjoint_and_empty_keys():
 @pytest.mark.parametrize("self_join", [True, False], ids=["self", "cross"])
 def test_numpy_merge_join_matches_native(self_join):
     if N._merge_join_native is None:
-        pytest.skip("humid_tpu_torch._hostops is not built")
+        pytest.skip("humid_tpu_torch._cedit is not built")
     rng = np.random.default_rng(9 + self_join)
     ka, oa, kb, ob = _join_case(rng, 3000, 400, self_join)
-    a, b = N._merge_join_numpy(ka[oa], oa, kb[ob], ob, self_join)
-    na, nb = N._merge_join(ka, oa, kb, ob, self_join, 1 << 30, "test")
+    a, b = N._merge_join_numpy(ka, oa, kb, ob, self_join)
+    need = N._join_size(ka[oa], kb[ob], self_join)
+    na, nb = np.empty(need, np.int64), np.empty(need, np.int64)
+    n = N._merge_join_into(ka, oa, kb, ob, ka[oa], kb[ob], self_join, na,
+                           nb, "test")
     assert sorted(zip(a.tolist(), b.tolist())) == sorted(
-        zip(na.tolist(), nb.tolist()))
+        zip(na[:n].tolist(), nb[:n].tolist()))
 
 
 def test_merge_join_checks_the_cap_before_it_joins(monkeypatch):
-    rng = np.random.default_rng(2)
-    ka, oa, kb, ob = _join_case(rng, 200, 3, True)
+    # The search sizes its joins first: with no join to run, the first
+    # join's cap still trips, naming it.
+    uniq = _degenerate_table()
     monkeypatch.setattr(N, "_merge_join_numpy", None)
     monkeypatch.setattr(N, "_merge_join_native", None)
     with pytest.raises(N.JoinCapExceeded, match="segment 0, shift 0"):
-        N._merge_join(ka, oa, kb, ob, True, 100, "(segment 0, shift 0)")
+        N.find_edit_pairs_shifted(uniq, 1, word_length=18, join_cap=100,
+                                  device="cpu")
 
 
 @pytest.mark.parametrize("length", [16, 24, 33])

@@ -1,5 +1,6 @@
 """The port's host C extensions (``_hostops``, ``_cfastqio``,
-``_ccluster``, ``_cumi``, built by ``python setup.py build_ext``) against
+``_ccluster``, ``_cumi``, ``_cedit``, built by ``python setup.py
+build_ext``) against
 the port's own numpy and Python fallbacks, on seeded random inputs.
 
 Every function of the extensions that the port calls is reached through
@@ -42,8 +43,8 @@ def _fallbacks(monkeypatch) -> None:
     checkout without the built extensions."""
     for mod, names in (
             (U, ("_argsort_u64", "_unique_u64", "_unique_packed")),
-            (N, ("_unique_u64", "_merge_join_native", "_run_pairs_native",
-                 "_run_pairs_hamming_native")),
+            (N, ("_unique_u64", "_merge_join_native", "_first_join_native",
+                 "_run_pairs_native", "_run_pairs_hamming_native")),
             (reader, ("_frame_native", "_scan_frames_native",
                       "_count_newlines_native", "_scan_frames_prefix_native",
                       "_gather_prefix_native")),
@@ -125,8 +126,10 @@ def test_runs_engine(monkeypatch, length, m):
 
 @pytest.mark.parametrize("length,m", [(18, 1), (24, 2)])
 def test_edit_shifted_search(monkeypatch, length, m):
-    """merge_join_pairs in the shifted-segment edit search."""
+    """merge_join_pairs and first_join_pairs in the shifted-segment edit
+    search."""
     _built("_hostops")
+    _built("_cedit")
     table = _table(np.random.default_rng(100 + length), 3000, length, 300,
                    m)
     native, plain = _both(monkeypatch, lambda: N.find_neighbor_pairs(
@@ -134,6 +137,87 @@ def test_edit_shifted_search(monkeypatch, length, m):
         device="cpu"))
     _equal(native, plain)
     assert len(native[0]) > 0
+
+
+def _union(keys, cols, sizes, a, b):
+    """N._first_join_union over copies of the joins' pairs (it works in
+    place), join p holding the next ``sizes[p]`` of them."""
+    starts = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    return N._first_join_union(keys, cols, starts, a.copy(), b.copy())
+
+
+@pytest.mark.parametrize("n_cols", [1, 5, 11])
+def test_first_join_pairs(monkeypatch, n_cols):
+    """first_join_pairs, the first-join union of the shifted edit search:
+    against its numpy fallback, pairs and order, over seeded keys (few
+    values, so the earlier joins find some pairs and miss others), with
+    an empty join among them, with no pair at all, and with a join whose
+    every pair an earlier join found."""
+    _built("_cedit")
+    rng = np.random.default_rng(n_cols)
+    keys = [rng.integers(0, 6, 5000).astype(np.uint64)
+            for _ in range(n_cols)]
+    cols = [tuple(rng.integers(0, n_cols, 2).tolist()) for _ in range(12)]
+    sizes = rng.integers(0, 40_000, len(cols))
+    sizes[3] = 0
+    a = rng.integers(0, 5000, sizes.sum())
+    b = rng.integers(0, 5000, sizes.sum())
+    native, plain = _both(monkeypatch,
+                          lambda: _union(keys, cols, sizes, a, b))
+    _equal(native, plain)
+    assert 0 < len(native[0]) < len(a)
+    none = np.zeros(0, np.int64)
+    native, plain = _both(monkeypatch, lambda: _union(
+        keys, cols, np.zeros(len(cols), np.int64), none, none))
+    _equal(native, plain)
+    assert len(native[0]) == 0
+    # Join 1's pairs are rows equal in column 0, which join 0 (on
+    # columns (0, 0)) finds: join 0's pairs are kept, join 1's go.
+    x = np.flatnonzero(keys[0] == 3)
+    y = x[::-1].copy()
+    native, plain = _both(monkeypatch, lambda: _union(
+        keys, [(0, 0), (0, 0)], [len(x), len(x)], np.concatenate([x, x]),
+        np.concatenate([y, y])))
+    _equal(native, plain)
+    np.testing.assert_array_equal(native[0], x)
+
+
+def test_edit_union_rejects_bad_input():
+    """The port's join and union refuse rows outside their keys or
+    table, mismatched lengths and columns out of range, and a join
+    reports the size it needs when its buffer is short."""
+    cedit = _built("_cedit")
+    ka = np.array([5, 7, 5], np.uint64)
+    kb = np.array([7, 5, 5], np.uint64)
+    oa = np.argsort(ka, kind="stable")
+    ob = np.argsort(kb, kind="stable")
+    out = np.empty(8, np.int64), np.empty(8, np.int64)
+    # (0, 1) is met both ways and comes out once; (0, 2) and (1, 2) are
+    # met one way.
+    n = cedit.merge_join_pairs(ka, oa, kb, ob, ka[oa], kb[ob], 0, *out)
+    assert sorted(zip(out[0][:n].tolist(), out[1][:n].tolist())) == [
+        (0, 1), (0, 2), (1, 2)]
+    short = np.empty(1, np.int64), np.empty(1, np.int64)
+    assert cedit.merge_join_pairs(ka, oa, kb, ob, ka[oa], kb[ob], 0,
+                                  *short) == -3
+    with pytest.raises(ValueError):
+        cedit.merge_join_pairs(ka, oa + 1, kb, ob, ka[oa], kb[ob], 0, *out)
+    with pytest.raises(ValueError):
+        cedit.merge_join_pairs(ka, oa, kb, ob, ka[oa][:2], kb[ob], 0, *out)
+    table = np.zeros((3, 2), np.uint32)
+    cols = np.array([0, 1], np.int64)
+    starts = np.array([0, 1, 2], np.int64)
+    pairs = np.array([0, 1], np.int64), np.array([1, 2], np.int64)
+    assert cedit.first_join_pairs(table, 3, 2, cols, cols, starts,
+                                  *map(np.copy, pairs)) == 1
+    for bad in ((table, 3, 2, cols, cols, starts,
+                 np.array([0, 3], np.int64), pairs[1].copy()),
+                (table, 3, 2, cols + 1, cols, starts, *map(np.copy, pairs)),
+                (table, 3, 2, cols, cols, starts + 1, *map(np.copy, pairs)),
+                (table.astype(np.uint8), 3, 2, cols, cols, starts,
+                 *map(np.copy, pairs))):
+        with pytest.raises(ValueError):
+            cedit.first_join_pairs(*bad)
 
 
 @pytest.mark.parametrize("n_files,gz,umi,batch", [
@@ -207,7 +291,8 @@ def test_components_and_masked_walk(monkeypatch, maximum):
 def test_run_end_to_end(monkeypatch, tmp_path, gz, maximum, edit):
     """encode_pack and every hook above through ``run()``: the same
     output bytes with the extensions and without."""
-    for name in ("_hostops", "io._cfastqio", "cluster._ccluster", "io._cumi"):
+    for name in ("_hostops", "io._cfastqio", "cluster._ccluster", "io._cumi",
+                 "_cedit"):
         _built(name)
     paths, _ = gen_dataset(np.random.default_rng(5 + gz), str(tmp_path),
                            n_reads=500, n_files=2, umi_style="underscore",

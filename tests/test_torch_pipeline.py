@@ -257,13 +257,16 @@ def test_midscale_edit_matches_humid_ref(opts, engine, midscale_edit,
                               device="cpu", neighbor_opts=opts)
     assert res.unique > 2048
     got = dict(res.extra["engine"])
-    assert got.pop("candidates", 1) > 0
+    candidates = got.pop("candidates", 1)
+    assert candidates > 0
     if got["strategy"] == "runs":
         # The shifted search's counters, which depend on the data: the
-        # pairs it kept, and the DP's batches of 2^20 distinct candidates.
+        # pairs it kept, the DP's batches of 2^20 distinct candidates,
+        # and the candidates an earlier join had found.
         assert got.pop("edit_pairs") == int(res.degree.sum()) // 2
-        assert got.pop("verify_batches") == -(
-            -got.pop("distinct_candidates") // (1 << 20))
+        distinct = got.pop("distinct_candidates")
+        assert got.pop("verify_batches") == -(-distinct // (1 << 20))
+        assert candidates - got.pop("first_join_dropped") == distinct
     assert got == engine
     assert "Calculating neighbours using Levenshtein distance" in \
         res.extra["timings"]

@@ -222,9 +222,10 @@ def test_log_bytes_equal_an_unspanned_run(files, tmp_path, monkeypatch):
 
 def test_edit_search_counts_its_candidates_batches_and_pairs(
         files, tmp_path, monkeypatch):
-    """The shifted edit search's counters: the DP's batches are the
-    distinct candidates over the batch, rounded up, and the pairs kept
-    are the run's neighbour pairs."""
+    """The shifted edit search's counters: the distinct candidates are
+    the joins' output less what an earlier join had found, the DP's
+    batches are the distinct candidates over the batch, rounded up, and
+    the pairs kept are the run's neighbour pairs."""
     from humid_tpu_torch.ops import edit as E
 
     batch, orig = 256, E.edit_pairs_verify
@@ -235,6 +236,8 @@ def test_edit_search_counts_its_candidates_batches_and_pairs(
     eng = res.extra["engine"]
     assert eng["metric"] == "edit" and eng["strategy"] == "runs"
     assert eng["candidates"] >= eng["distinct_candidates"] > batch
+    assert (eng["candidates"] - eng["first_join_dropped"]
+            == eng["distinct_candidates"])
     assert eng["verify_batches"] == -(-eng["distinct_candidates"] // batch)
     assert eng["edit_pairs"] == int(res.degree.sum()) // 2 > 0
     assert eng["join_cap_fallbacks"] == 0
